@@ -1,7 +1,7 @@
-// Native (C++) components of audio_pattern_discovery_tpu (SURVEY.md SS3 row 11).
+// Native (C++) components of audio_pattern_discovery (SURVEY.md SS3 row 11).
 //
-// The reference implementation is entirely native (Rust, CPU).  On TPU the
-// idiomatic native tier for the *compute path* is XLA/Mosaic-compiled JAX +
+// The reference implementation is entirely native (Rust, CPU).  On the
+// accelerator the native tier for the *compute path* is XLA-compiled JAX +
 // Pallas; this library provides the native *runtime* pieces around it:
 //
 //   * apd_dtw_batch      — CPU DTW (the Rust-reference-equivalent hot loop).
@@ -26,7 +26,12 @@
 #include <vector>
 
 #ifdef _OPENMP
+#ifdef _OPENMP
 #include <omp.h>
+#else
+// Built without OpenMP (a toolchain without libgomp): loops run serially.
+static inline int omp_get_max_threads() { return 1; }
+#endif
 #endif
 
 extern "C" {

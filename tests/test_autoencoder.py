@@ -1,7 +1,8 @@
 import numpy as np
+import pytest
 
-from audio_pattern_discovery_tpu.config import AutoencoderConfig
-from audio_pattern_discovery_tpu.models.autoencoder import (
+from audio_pattern_discovery.config import AutoencoderConfig
+from audio_pattern_discovery.models.autoencoder import (
     FeatureScaler,
     encode_frames,
     train_autoencoder,
@@ -74,8 +75,8 @@ def test_denoising_mode_trains(rng):
 def test_encode_frames_empty_input():
     import numpy as np
 
-    from audio_pattern_discovery_tpu.config import AutoencoderConfig
-    from audio_pattern_discovery_tpu.models.autoencoder import (
+    from audio_pattern_discovery.config import AutoencoderConfig
+    from audio_pattern_discovery.models.autoencoder import (
         create_model,
         encode_frames,
         init_state,
@@ -92,9 +93,9 @@ def test_train_fewer_frames_than_devices(rng):
     """n < mesh size must replicate instead of crashing on batch shape."""
     import jax
 
-    from audio_pattern_discovery_tpu.config import AutoencoderConfig, ParallelConfig
-    from audio_pattern_discovery_tpu.models.autoencoder import train_autoencoder
-    from audio_pattern_discovery_tpu.parallel.mesh import data_sharding, make_mesh
+    from audio_pattern_discovery.config import AutoencoderConfig, ParallelConfig
+    from audio_pattern_discovery.models.autoencoder import train_autoencoder
+    from audio_pattern_discovery.parallel.mesh import data_sharding, make_mesh
 
     if len(jax.devices()) < 8:
         import pytest
@@ -114,7 +115,7 @@ def test_pool_quantization_grid():
     repeated real frames (shape-stable compiles across corpora); smaller
     pools pass through untouched (small-corpus behavior stays
     bit-identical, incl. the committed golden anchor)."""
-    from audio_pattern_discovery_tpu.models.autoencoder import (
+    from audio_pattern_discovery.models.autoencoder import (
         _quantize_pool,
     )
 
@@ -148,3 +149,59 @@ def test_pool_quantization_shares_one_compile(rng):
     _, state_b, _ = train_autoencoder(frames_b, cfg)
     # same ladder point (8192) -> same batch count baked into both runs
     assert state_a.step == state_b.step
+
+
+def _flax_twin(hidden_dims, latent_dim, out_dim):
+    """The Flax module this AE's weights must match bit for bit."""
+    nn = pytest.importorskip("flax.linen")
+
+    class Twin(nn.Module):
+        def setup(self):
+            self.enc_layers = [nn.Dense(h) for h in hidden_dims] + [
+                nn.Dense(latent_dim)
+            ]
+            self.dec_layers = [nn.Dense(h) for h in reversed(hidden_dims)] + [
+                nn.Dense(out_dim)
+            ]
+
+        def __call__(self, x):
+            h = x
+            for layer in self.enc_layers[:-1]:
+                h = nn.relu(layer(h))
+            z = self.enc_layers[-1](h)
+            h = z
+            for layer in self.dec_layers[:-1]:
+                h = nn.relu(layer(h))
+            return self.dec_layers[-1](h), z
+
+    return Twin()
+
+
+@pytest.mark.parametrize(
+    "hidden, latent, dim, seed",
+    [((256, 64), 16, 513, 0), ((16,), 4, 12, 7)],
+)
+def test_init_and_forward_equal_flax(hidden, latent, dim, seed):
+    """Initial weights (and hence the committed golden anchors) are the
+    ones the former Flax model drew: same tree, bit-identical leaves, and
+    the same forward pass."""
+    import jax
+    import jax.numpy as jnp
+
+    from audio_pattern_discovery.models.autoencoder import AutoEncoder
+
+    twin = _flax_twin(hidden, latent, dim)
+    key = jax.random.PRNGKey(seed)
+    x0 = jnp.zeros((1, dim), jnp.float32)
+    want = twin.init(key, x0)
+    model = AutoEncoder(hidden, latent, dim)
+    got = model.init(key, x0)
+    fl = jax.tree_util.tree_leaves_with_path(want)
+    ml = jax.tree_util.tree_leaves_with_path(got)
+    assert [str(p) for p, _ in fl] == [str(p) for p, _ in ml]
+    for (_, a), (_, b) in zip(fl, ml):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    x = jax.random.normal(jax.random.PRNGKey(1), (5, dim))
+    (r1, z1), (r2, z2) = twin.apply(want, x), model.apply(got, x)
+    np.testing.assert_array_equal(np.asarray(z1), np.asarray(z2))
+    np.testing.assert_array_equal(np.asarray(r1), np.asarray(r2))

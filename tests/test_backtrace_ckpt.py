@@ -4,10 +4,10 @@ IDENTICAL (bitwise-equal cell values -> same tie-breaks)."""
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.io.corpus import pad_and_stack
-from audio_pattern_discovery_tpu.ops.backtrace import paths_from_dirs
-from audio_pattern_discovery_tpu.ops.backtrace_ckpt import dtw_paths_checkpointed
-from audio_pattern_discovery_tpu.ops.dtw import dtw_batch_with_dirs
+from audio_pattern_discovery.io.corpus import pad_and_stack
+from audio_pattern_discovery.ops.backtrace import paths_from_dirs
+from audio_pattern_discovery.ops.backtrace_ckpt import dtw_paths_checkpointed
+from audio_pattern_discovery.ops.dtw import dtw_batch_with_dirs
 
 
 def _one_shot_paths(a, b, la, lb, **kw):
@@ -59,8 +59,8 @@ def test_paths_monotone_unit_steps(rng):
 def test_pipeline_uses_checkpointed_path_for_long_sequences(rng, monkeypatch):
     """_cluster_alignments must route L >= 512 through the checkpointed
     backtrace and still return the one-shot-identical paths."""
-    import audio_pattern_discovery_tpu.pipeline as pl
-    from audio_pattern_discovery_tpu.config import PipelineConfig
+    import audio_pattern_discovery.pipeline as pl
+    from audio_pattern_discovery.config import PipelineConfig
 
     K, L, d = 5, 600, 4
     lengths = rng.integers(520, 601, K).astype(np.int32)
@@ -71,7 +71,7 @@ def test_pipeline_uses_checkpointed_path_for_long_sequences(rng, monkeypatch):
     cfg.dtw.band = 16
 
     called = {"n": 0}
-    import audio_pattern_discovery_tpu.ops.backtrace_ckpt as bc
+    import audio_pattern_discovery.ops.backtrace_ckpt as bc
 
     real = bc.dtw_paths_checkpointed
 

@@ -1,18 +1,18 @@
-"""AE checkpoint/resume via orbax (SURVEY.md SS6.4)."""
+"""AE checkpoint/resume as one .npz file (SURVEY.md SS6.4)."""
 
 import jax
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import AutoencoderConfig, PipelineConfig
-from audio_pattern_discovery_tpu.models.autoencoder import (
+from audio_pattern_discovery.config import AutoencoderConfig, PipelineConfig
+from audio_pattern_discovery.models.autoencoder import (
     FeatureScaler,
     encode_frames,
     train_autoencoder,
 )
-from audio_pattern_discovery_tpu.pipeline import discover
-from audio_pattern_discovery_tpu.synthetic import make_corpus
-from audio_pattern_discovery_tpu.utils.checkpoint import (
+from audio_pattern_discovery.pipeline import discover
+from audio_pattern_discovery.synthetic import make_corpus
+from audio_pattern_discovery.utils.checkpoint import (
     has_ae_checkpoint,
     restore_ae_checkpoint,
     save_ae_checkpoint,
@@ -92,3 +92,32 @@ def test_pipeline_resume_skips_training(tmp_path):
     np.testing.assert_allclose(
         r1.distance_matrix, r2.distance_matrix, rtol=1e-5, atol=1e-6
     )
+
+
+def test_optimizer_state_roundtrip_and_config_guard(tmp_path, rng):
+    """The optax state comes back with its structure, and a checkpoint
+    saved under another AE shape is refused with the rebuild hint."""
+    frames = rng.normal(0, 1, (100, 8)).astype(np.float32)
+    cfg = _cfg()
+    _, state, _ = train_autoencoder(frames, cfg)
+    save_ae_checkpoint(tmp_path, state)
+    _, state2, _ = restore_ae_checkpoint(tmp_path, cfg, 8)
+    assert jax.tree_util.tree_structure(state2.opt_state) == (
+        jax.tree_util.tree_structure(state.opt_state)
+    )
+    for a, b in zip(jax.tree_util.tree_leaves(state.opt_state),
+                    jax.tree_util.tree_leaves(state2.opt_state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    with pytest.raises(ValueError, match="full discovery"):
+        restore_ae_checkpoint(tmp_path, cfg, 9)          # other input width
+    wider = AutoencoderConfig(latent_dim=4, hidden_dims=(16, 8), epochs=1)
+    with pytest.raises(ValueError, match="full discovery"):
+        restore_ae_checkpoint(tmp_path, wider, 8)        # other layer count
+
+
+def test_legacy_checkpoint_directory_is_not_a_checkpoint(tmp_path):
+    """An index from before the .npz format holds an `ae_state/` directory;
+    it does not count, so update/query hit the run-a-full-discovery guard."""
+    (tmp_path / "ae_state").mkdir()
+    (tmp_path / "ae_state" / "_METADATA").write_text("{}")
+    assert not has_ae_checkpoint(tmp_path)

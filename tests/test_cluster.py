@@ -2,12 +2,12 @@ import numpy as np
 import pytest
 from scipy.cluster.hierarchy import fcluster
 
-from audio_pattern_discovery_tpu.cluster.agglomerative import (
+from audio_pattern_discovery.cluster.agglomerative import (
     cut_linkage,
     linkage,
     nn_chain_linkage,
 )
-from audio_pattern_discovery_tpu.oracle.cluster import cut_oracle, linkage_oracle
+from audio_pattern_discovery.oracle.cluster import cut_oracle, linkage_oracle
 
 
 def _random_dist(rng, k):
@@ -94,10 +94,10 @@ def test_inf_rows_no_self_merge(rng, method):
     # Exactly one merge bridges the components; it must carry height +inf.
     assert np.sum(np.isinf(Z[:, 2])) == 1
 
-    from audio_pattern_discovery_tpu import native
+    from audio_pattern_discovery import native
 
     if native.available():
-        from audio_pattern_discovery_tpu.cluster.agglomerative import (
+        from audio_pattern_discovery.cluster.agglomerative import (
             _sort_and_relabel,
         )
 
@@ -111,7 +111,7 @@ def test_auto_cut_gap_rule_tracks_scale():
     """The largest-relative-gap cut must recover planted cluster structure
     from 60 to 2000 segments (a fixed quantile's implied cluster count
     scales with K and fails at large K) — VERDICT round-1 weak #5."""
-    from audio_pattern_discovery_tpu.cluster.agglomerative import (
+    from audio_pattern_discovery.cluster.agglomerative import (
         auto_cut_threshold,
         cut_linkage,
         linkage,
@@ -143,7 +143,7 @@ def test_auto_cut_gap_rule_tracks_scale():
 
 def test_auto_cut_no_structure_falls_back_to_quantile():
     """Pure noise (no gap) must not crash and must use the quantile rule."""
-    from audio_pattern_discovery_tpu.cluster.agglomerative import (
+    from audio_pattern_discovery.cluster.agglomerative import (
         auto_cut_threshold,
         linkage,
     )
@@ -178,7 +178,7 @@ def test_auto_cut_many_small_clusters_beyond_half():
     round-2 upper-half gap search missed the transition entirely.  The
     height-significance rule must still cut correctly (VERDICT r2 weak #4).
     """
-    from audio_pattern_discovery_tpu.cluster.agglomerative import (
+    from audio_pattern_discovery.cluster.agglomerative import (
         auto_cut_threshold,
         cut_linkage,
         linkage,
@@ -205,7 +205,7 @@ def test_auto_cut_many_small_clusters_beyond_half():
 def test_auto_cut_motif_count_sweep_2_to_50x():
     """Cluster-count recovery across a 25x span of planted counts at fixed
     corpus scale (VERDICT r2 item 7: 'motif counts 2-50x larger')."""
-    from audio_pattern_discovery_tpu.cluster.agglomerative import (
+    from audio_pattern_discovery.cluster.agglomerative import (
         auto_cut_threshold,
         cut_linkage,
         linkage,
@@ -231,7 +231,7 @@ def test_auto_cut_monotone_in_planted_count():
     """Property: more planted clusters -> the recovered cluster count is
     non-decreasing (up to small tolerance) — the cut must track structure,
     not sit at a fixed quantile of merge heights."""
-    from audio_pattern_discovery_tpu.cluster.agglomerative import (
+    from audio_pattern_discovery.cluster.agglomerative import (
         auto_cut_threshold,
         cut_linkage,
         linkage,

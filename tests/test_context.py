@@ -7,15 +7,15 @@ import shutil
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import PipelineConfig
-from audio_pattern_discovery_tpu.ops.context import (
+from audio_pattern_discovery.config import PipelineConfig
+from audio_pattern_discovery.ops.context import (
     flat_context,
     stack_context_device,
     stack_context_frames,
     stack_context_host,
 )
-from audio_pattern_discovery_tpu.pipeline import _feature_fingerprint, discover
-from audio_pattern_discovery_tpu.synthetic import make_corpus
+from audio_pattern_discovery.pipeline import _feature_fingerprint, discover
+from audio_pattern_discovery.synthetic import make_corpus
 
 
 def test_stack_frames_edge_clamp():
@@ -161,7 +161,7 @@ def test_update_with_context_is_exact(tmp_path):
 
 @pytest.mark.full
 def test_query_with_context(tmp_path):
-    from audio_pattern_discovery_tpu.query import query_corpus
+    from audio_pattern_discovery.query import query_corpus
 
     src = tmp_path / "src"
     make_corpus(

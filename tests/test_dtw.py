@@ -1,15 +1,15 @@
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.io.corpus import pad_and_stack
-from audio_pattern_discovery_tpu.ops.backtrace import paths_from_dirs
-from audio_pattern_discovery_tpu.ops.dtw import (
+from audio_pattern_discovery.io.corpus import pad_and_stack
+from audio_pattern_discovery.ops.backtrace import paths_from_dirs
+from audio_pattern_discovery.ops.dtw import (
     dtw_batch,
     dtw_batch_with_dirs,
     dtw_pair,
     pairwise_cost,
 )
-from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle, dtw_path_oracle
+from audio_pattern_discovery.oracle.dtw import dtw_oracle, dtw_path_oracle
 
 
 def _random_pairs(rng, n_pairs, len_range=(5, 40), d=6):

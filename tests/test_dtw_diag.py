@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.oracle.dtw import (
+from audio_pattern_discovery.oracle.dtw import (
     band_valid,
     dtw_oracle,
 )
@@ -104,7 +104,7 @@ def test_diag_connected_random_lengths():
 
 # ------------------------------------------------------------------ pure JAX
 def test_dtw_batch_diag_vs_oracle():
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
+    from audio_pattern_discovery.ops.dtw import dtw_batch
 
     rng = np.random.default_rng(7)
     B, S, d = 12, 40, 4
@@ -125,7 +125,7 @@ def test_dtw_batch_diag_vs_oracle():
 
 
 def test_dtw_batch_diag_normalized():
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
+    from audio_pattern_discovery.ops.dtw import dtw_batch
 
     rng = np.random.default_rng(8)
     a = rng.normal(0, 1, (3, 20, 3)).astype(np.float32)
@@ -143,7 +143,7 @@ def test_dtw_batch_diag_normalized():
 
 
 def test_validity_grid_rejects_unknown_mode():
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
+    from audio_pattern_discovery.ops.dtw import dtw_batch
 
     a = np.zeros((1, 4, 2), np.float32)
     with pytest.raises(ValueError, match="band_mode"):
@@ -151,51 +151,34 @@ def test_validity_grid_rejects_unknown_mode():
                   band=2, band_mode="nope")
 
 
-# ------------------------------------------------------------- lane kernel
-def _lane_diag_case(rng, K, S, d, ti, len_lo, len_hi, band):
-    """Random sorted corpus + all tile-pairs through the diag lane kernel
-    (interpret), with class bounds from diag_class_bounds."""
+# ------------------------------------------------------------- tile kernel
+def _tile_diag_case(rng, K, S, d, ti, len_lo, len_hi, band):
+    """Random sorted corpus + all tile-pairs through the tile kernel in
+    diag mode (interpret)."""
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
+    from audio_pattern_discovery.ops.dtw_tile import dtw_tile_pairs
 
     lens = np.sort(rng.integers(len_lo, len_hi + 1, K)).astype(np.int32)
     feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
     for k in range(K):
         feats[k, lens[k]:] = 0.0
     nT = K // ti
-    rep = tile_rep_lengths(lens, nT, ti, K)
-    tmin = [int(lens[t * ti : (t + 1) * ti].min()) for t in range(nT)]
-    tmax = [int(lens[t * ti : (t + 1) * ti].max()) for t in range(nT)]
-
-    blocks = {}
-    for I in range(nT):
-        for J in range(I, nT):
-            wv, kmax = diag_class_bounds(
-                band, tmin[I], tmax[I], tmin[J], tmax[J]
-            )
-            rows = tmax[I]
-            out = dtw_tile_lane_diag_pairs(
-                jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep),
-                jnp.asarray([I], np.int32), jnp.asarray([J], np.int32),
-                ti=ti, band=band, wv_max=wv, kmax=kmax, rows=rows,
-                interpret=True,
-            )
-            blocks[(I, J)] = np.asarray(out)[0]
-    return feats, lens, blocks
+    pairs = [(I, J) for I in range(nT) for J in range(I, nT)]
+    out = np.asarray(dtw_tile_pairs(
+        jnp.asarray(feats), jnp.asarray(lens),
+        jnp.asarray([p[0] for p in pairs], np.int32),
+        jnp.asarray([p[1] for p in pairs], np.int32),
+        ti=ti, band=band, interpret=True,
+    ))
+    return feats, lens, {p: out[u] for u, p in enumerate(pairs)}
 
 
 def _scan_ref(feats, lens, ia, ib, band):
-    """Reference through the pure-JAX diag path (same Gram-trick numerics
-    as the kernel build, so the near-zero cancellation residue cancels in
-    the comparison; dtw_batch's own oracle parity is pinned above)."""
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
+    """Reference through the pure-JAX diag path (dtw_batch's own oracle
+    parity is pinned above)."""
+    from audio_pattern_discovery.ops.dtw import dtw_batch
 
-    S = feats.shape[1]
     return float(
         np.asarray(
             dtw_batch(
@@ -209,33 +192,31 @@ def _scan_ref(feats, lens, ia, ib, band):
 
 def test_lane_diag_kernel_vs_scan_path():
     rng = np.random.default_rng(9)
-    K, S, d, ti, band = 24, 32, 4, 8, 3
-    feats, lens, blocks = _lane_diag_case(rng, K, S, d, ti, 6, 32, band)
+    K, S, d, ti, band = 12, 16, 3, 4, 3
+    feats, lens, blocks = _tile_diag_case(rng, K, S, d, ti, 4, 16, band)
     for (I, J), blk in blocks.items():
         for r in range(ti):
             for c in range(ti):
                 ia, ib = I * ti + r, J * ti + c
                 if ia == ib:
-                    # Exact self-pair: the VPU FMA build's channel-trick
-                    # residue (~1.6e-3 at true 0) differs from the MXU
-                    # path's; the scheduler never scatters the diagonal
-                    # (strict upper triangle), so it is not a production
-                    # surface.
+                    # Self-pairs: the kernel's direct differences give 0,
+                    # the scan path's Gram form a cancellation residue; the
+                    # scheduler never scatters the diagonal.
+                    assert blk[r, c] == 0.0
                     continue
                 ref = _scan_ref(feats, lens, ia, ib, band)
-                assert np.isclose(blk[r, c], ref, rtol=1e-4, atol=1e-3), (
+                assert np.isclose(blk[r, c], ref, rtol=1e-4, atol=1e-4), (
                     (I, J, r, c), lens[ia], lens[ib], blk[r, c], ref,
                 )
 
 
 @pytest.mark.full
 def test_lane_diag_kernel_wide_length_spread():
-    # Length ratio up to ~4x across tiles: exercises kmax in {2, 3, 4} and
-    # the center-line shear — the regime the straight lane kernel pays
-    # W_s = O(|la-lb|) for.
+    # Length ratio up to ~4x across tiles: the corridor's slope ranges from
+    # 1/4 to 4, so each strip's row window spans several strips' width.
     rng = np.random.default_rng(10)
-    K, S, d, ti, band = 16, 64, 3, 4, 4
-    feats, lens, blocks = _lane_diag_case(rng, K, S, d, ti, 12, 60, band)
+    K, S, d, ti, band = 12, 24, 3, 4, 2
+    feats, lens, blocks = _tile_diag_case(rng, K, S, d, ti, 6, 24, band)
     checked = 0
     for (I, J), blk in blocks.items():
         if I == J:
@@ -243,140 +224,78 @@ def test_lane_diag_kernel_wide_length_spread():
         for r in range(ti):
             for c in range(ti):
                 ia, ib = I * ti + r, J * ti + c
-                ref = _scan_ref(feats, lens, ia, ib, band)
-                assert np.isclose(blk[r, c], ref, rtol=1e-4, atol=1e-3), (
-                    (I, J, r, c), lens[ia], lens[ib], blk[r, c], ref,
+                want = dtw_oracle(
+                    feats[ia, : lens[ia]], feats[ib, : lens[ib]], band=band,
+                    band_mode="diag",
+                )
+                assert np.isclose(blk[r, c], want, rtol=1e-5, atol=1e-5), (
+                    (I, J, r, c), lens[ia], lens[ib], blk[r, c], want,
                 )
                 checked += 1
     assert checked >= 48
 
 
-def test_lane_diag_out_of_frame_is_inf():
-    # A wv bound below a real pair's requirement must surface as +inf
-    # (never a truncated distance): the extraction slot falls outside
-    # [0, W_s).
+@pytest.mark.parametrize(
+    "la, lb, band",
+    [(2, 16, 1), (16, 2, 1), (1, 16, 3), (16, 1, 3), (3, 16, 0), (16, 5, 16)],
+)
+def test_diag_kernel_extreme_slopes(la, lb, band):
+    # Steep and flat corridors, length-1 degenerates and band 0 (treated as
+    # 1): the in-kernel row windows must cover every corridor cell.
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        dtw_tile_lane_diag_pairs,
-    )
+    from audio_pattern_discovery.ops.dtw_tile import dtw_tile_pairs
 
-    rng = np.random.default_rng(11)
-    K, S, d, ti = 8, 32, 3, 4
-    lens = np.array([8, 8, 8, 8, 30, 30, 31, 32], np.int32)
-    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-    rep = np.array([8, 8], np.int32)  # tile 1's rep DELIBERATELY wrong (31)
-    out = dtw_tile_lane_diag_pairs(
-        jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep),
-        jnp.asarray([0], np.int32), jnp.asarray([1], np.int32),
-        ti=ti, band=2, wv_max=4, kmax=1, rows=8, interpret=True,
-    )
-    assert np.isinf(np.asarray(out)).all()
-
-
-def test_diag_class_bounds_monotone_contract():
-    # Merging classes takes elementwise max of (rows, wv, kmax); the kernel
-    # contract only needs bounds >= each pair's requirement, so bounds must
-    # be monotone in the tile ranges they cover.
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import diag_class_bounds
-
-    wv1, k1 = diag_class_bounds(4, 20, 24, 40, 44)
-    wv2, k2 = diag_class_bounds(4, 16, 24, 40, 48)  # superset ranges
-    assert wv2 >= wv1 and k2 >= k1
-
-
-def test_diag_bounds_slot_coverage_exact():
-    # Round-5 exact-width contract: wv_req = corridor + spread (the round-4
-    # +2 slack removed) still places EVERY corridor cell of every
-    # (la, lb) in the class ranges inside the kernel's stripe frame
-    # [c(i) - off, c(i) - off + W).  Brute-forced over adversarial range
-    # shapes: degenerate lengths, num > den (diagonal tile-pairs), wide
-    # spreads, band=1.  Also checks tightness at the bench-like shape:
-    # one fewer wv slot must LOSE a corridor cell somewhere (so the bound
-    # is exact, not just sufficient).
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import diag_class_bounds
-
-    def check(band, tmin_i, tmax_i, tmin_j, tmax_j, wv_override=None):
-        wv, _ = diag_class_bounds(band, tmin_i, tmax_i, tmin_j, tmax_j)
-        if wv_override is not None:
-            wv = wv_override
-        off = wv + 1
-        W = 8 * -(-(2 * wv + 2) // 8)
-        lbm = (tmin_j + tmax_j + 1) // 2
-        numm = lbm - 1
-        r = max(band, 1)
-        for la in range(tmin_i, tmax_i + 1):
-            den_t = la - 1
-            den = max(den_t, 1)
-            half = den // 2
-            for lb in range(tmin_j, tmax_j + 1):
-                num = lb - 1
-                thresh = r * max(den_t, num)
-                for i in range(la):
-                    c = min((i * numm + half) // den, numm)
-                    for j in range(lb):
-                        if abs(j * den_t - i * num) <= thresh:
-                            s = j - c + off
-                            if not (0 <= s < W):
-                                return False
-        return True
-
-    cases = [
-        (1, 2, 5, 2, 5),          # band=1, tiny lengths
-        (4, 20, 24, 40, 48),      # num > den throughout (short A tile)
-        (4, 40, 48, 20, 24),      # long-on-rows orientation
-        (16, 100, 104, 100, 104), # diagonal tile-pair (lb can exceed la)
-        (16, 112, 128, 64, 80),   # bench-like long-on-rows, wide spread
-        (3, 1, 9, 1, 9),          # length-1 degenerates in range
-        (2, 6, 6, 30, 30),        # extreme slope, zero spread
-    ]
-    for case in cases:
-        assert check(*case), f"coverage lost at {case}"
-    # Tightness at the zero-spread equal-length shape, where the corridor
-    # extreme slot d = +band is exactly achieved (i=0, j=band): wv - 1
-    # must lose that cell.  (At mixed-range shapes the ceil'd class bound
-    # may over-cover by <= 1 slot — acceptable; sufficiency above is the
-    # contract, tightness here shows there is no systematic slack left.)
-    wv, _ = diag_class_bounds(16, 101, 101, 101, 101)
-    assert wv == 16
-    assert not check(16, 101, 101, 101, 101, wv_override=wv - 1)
+    rng = np.random.default_rng(la * 100 + lb)
+    ti, S, d = 2, 16, 3
+    lens = np.array([la, la, lb, lb], np.int32)
+    feats = rng.normal(0, 1, (4, S, d)).astype(np.float32)
+    out = np.asarray(dtw_tile_pairs(
+        jnp.asarray(feats), jnp.asarray(lens), jnp.asarray([0, 1], np.int32),
+        jnp.asarray([1, 0], np.int32), ti=ti, band=band, strip=4,
+        interpret=True,
+    ))
+    for r in range(ti):
+        for c in range(ti):
+            want = dtw_oracle(
+                feats[r, :la], feats[ti + c, :lb], band=band, band_mode="diag"
+            )
+            assert np.isclose(out[0, r, c], want, rtol=1e-5, atol=1e-5)
+            assert np.isclose(out[1, c, r], want, rtol=1e-5, atol=1e-5)
 
 
 # -------------------------------------------------------------- scheduler
 def test_diag_tiled_scheduler_matches_legacy():
-    # Full tiled scheduler through the diag lane route (sorted tiles, class
-    # merging, scatter) vs the legacy per-pair path, both band_mode="diag".
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
-    from audio_pattern_discovery_tpu.config import DTWConfig
+    # Full tiled scheduler in diag mode (sorted tiles, class merging,
+    # scatter) vs the legacy per-pair path, both band_mode="diag".
+    import audio_pattern_discovery.parallel.pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
 
     rng = np.random.default_rng(12)
-    K, L, d = 40, 32, 4
+    K, L, d = 20, 16, 3
     feats = rng.normal(0, 1, (K, L, d)).astype(np.float32)
-    lens = rng.integers(8, 33, K).astype(np.int32)
-    cfg = DTWConfig(band=4, band_mode="diag", normalize="path_len")
-    D_lane = ps.all_pairs_distances_tiled(
-        feats, lens, cfg, interpret=True, geometry=(8, 0, 0), lane=True,
-        chunk_programs=4,
+    lens = rng.integers(4, 17, K).astype(np.int32)
+    cfg = DTWConfig(band=3, band_mode="diag", normalize="path_len")
+    D_tile = ps.all_pairs_distances_tiled(
+        feats, lens, cfg, interpret=True, ti=8, chunk_programs=4,
     )
     D_ref = ps.all_pairs_distances(feats, lens, cfg, tiled=False)
-    np.testing.assert_allclose(D_lane, D_ref, rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.diag(D_lane), 0.0, atol=1e-6)
+    np.testing.assert_allclose(D_tile, D_ref, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.diag(D_tile), 0.0, atol=1e-6)
 
 
 @pytest.mark.full
 def test_diag_tiled_scheduler_resume(tmp_path):
-    # Block persistence + resume under diag classes (3-tuple class keys in
-    # the block fingerprint).
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
-    from audio_pattern_discovery_tpu.config import DTWConfig
+    # Block persistence + resume under diag classes.
+    import audio_pattern_discovery.parallel.pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
 
     rng = np.random.default_rng(13)
-    K, L, d = 24, 32, 3
+    K, L, d = 12, 16, 3
     feats = rng.normal(0, 1, (K, L, d)).astype(np.float32)
-    lens = rng.integers(6, 33, K).astype(np.int32)
-    cfg = DTWConfig(band=4, band_mode="diag", normalize="path_len")
-    kw = dict(interpret=True, geometry=(8, 0, 0), lane=True,
-              chunk_programs=2, block_dir=tmp_path)
+    lens = rng.integers(4, 17, K).astype(np.int32)
+    cfg = DTWConfig(band=3, band_mode="diag", normalize="path_len")
+    kw = dict(interpret=True, ti=4, chunk_programs=2, block_dir=tmp_path)
     D1 = ps.all_pairs_distances_tiled(feats, lens, cfg, **kw)
     stats: dict = {}
     D2 = ps.all_pairs_distances_tiled(feats, lens, cfg, stats=stats, **kw)
@@ -385,374 +304,30 @@ def test_diag_tiled_scheduler_resume(tmp_path):
 
 
 def test_diag_router_prefers_lane_then_legacy(monkeypatch):
-    # band_mode="diag" must never route to the square/stripe tile kernels:
-    # with the lane route gated off, the router falls back to the legacy
-    # path (not tiled), and the tiled scheduler refuses a non-lane diag job.
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
-    from audio_pattern_discovery_tpu.config import DTWConfig
+    # On a GPU, band_mode="diag" takes the tile route; "widen" bands stay on
+    # the plain path, and the tiled scheduler refuses them outright.
+    import audio_pattern_discovery.parallel.pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
 
     rng = np.random.default_rng(14)
     feats = rng.normal(0, 1, (10, 16, 3)).astype(np.float32)
     lens = rng.integers(4, 17, 10).astype(np.int32)
-    cfg = DTWConfig(band=2, band_mode="diag")
+    monkeypatch.setattr(ps, "on_gpu", lambda: True)
+    routed = []
+    real_tiled = ps.all_pairs_distances_tiled
+
+    def spy(*a, **k):
+        routed.append(True)
+        return real_tiled(*a, interpret=True, ti=8, **k)
+
+    monkeypatch.setattr(ps, "all_pairs_distances_tiled", spy)
+    D = ps.all_pairs_distances(feats, lens, DTWConfig(band=2, band_mode="diag"))
+    assert routed and D.shape == (10, 10)
+    routed.clear()
+    ps.all_pairs_distances(feats, lens, DTWConfig(band=2, band_mode="widen"))
+    assert not routed
     with pytest.raises(ValueError, match="diag"):
-        ps.all_pairs_distances_tiled(
-            feats, lens, cfg, interpret=True, geometry=(8, 4, 8), lane=False,
+        real_tiled(
+            feats, lens, DTWConfig(band=2, band_mode="widen"),
+            interpret=True, ti=8,
         )
-
-
-@pytest.mark.full
-def test_lane_diag_chain_fallback_matches_dyn_roll():
-    # dyn_roll=False (the kmax-static select chain) must be value-identical
-    # to the default dynamic-shift realignment.
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
-
-    rng = np.random.default_rng(15)
-    K, S, d, ti, band = 8, 64, 3, 4, 4
-    lens = np.sort(rng.integers(12, 61, K)).astype(np.int32)
-    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-    rep = tile_rep_lengths(lens, 2, ti, K)
-    wv, kmax = diag_class_bounds(
-        band, int(lens[:ti].min()), int(lens[:ti].max()),
-        int(lens[ti:].min()), int(lens[ti:].max()),
-    )
-    kw = dict(ti=ti, band=band, wv_max=wv, rows=int(lens[:ti].max()),
-              interpret=True)
-    a = np.asarray(dtw_tile_lane_diag_pairs(
-        jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep),
-        jnp.asarray([0], np.int32), jnp.asarray([1], np.int32),
-        dyn_roll=True, **kw))
-    b = np.asarray(dtw_tile_lane_diag_pairs(
-        jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep),
-        jnp.asarray([0], np.int32), jnp.asarray([1], np.int32),
-        dyn_roll=False, kmax=kmax, **kw))
-    np.testing.assert_array_equal(a, b)
-
-
-# ------------------------------------------------------------ stack parity
-def test_lane_diag_stack_bitwise_parity():
-    # The kernel docstring claims results are BITWISE-stable in `stack`
-    # (every per-half f32 op sequence identical to stack=1) — prove it:
-    # same corpus, stack in {2, 4} vs 1, np.array_equal on the [U, ti, ti]
-    # blocks, including out-of-frame +inf slots and pad rows.
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
-
-    rng = np.random.default_rng(21)
-    K, S, d, ti, band = 16, 32, 4, 8, 3
-    lens = np.sort(rng.integers(6, 33, K)).astype(np.int32)
-    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-    for k in range(K):
-        feats[k, lens[k]:] = 0.0
-    nT = K // ti
-    rep = tile_rep_lengths(lens, nT, ti, K)
-    wv, kmax = diag_class_bounds(
-        band, int(lens[:ti].min()), int(lens[:ti].max()),
-        int(lens[ti:].min()), int(lens[ti:].max()),
-    )
-    kw = dict(ti=ti, band=band, wv_max=wv, kmax=kmax,
-              rows=int(lens.max()), interpret=True)
-    ii = jnp.asarray([0, 0, 1], np.int32)
-    jj = jnp.asarray([0, 1, 1], np.int32)
-    base = np.asarray(dtw_tile_lane_diag_pairs(
-        jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep),
-        ii, jj, stack=1, **kw))
-    for stack in (2, 4, 8):
-        got = np.asarray(dtw_tile_lane_diag_pairs(
-            jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep),
-            ii, jj, stack=stack, **kw))
-        np.testing.assert_array_equal(got, base)
-
-
-def test_lane_diag_hoist_bitwise_parity():
-    # Round-5 hoisted block-window build: the d+1 dynamic-offset loads
-    # move out of the row loop (one wide load set per UR-row block, one
-    # traced realign roll per row).  Per-slot f32 operand values and op
-    # order are identical to the per-row-load path, so results must be
-    # BITWISE equal — including +inf out-of-frame slots, pad rows, and
-    # kmax > 1 (high-slope) cases where the in-block drift is nonzero.
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
-
-    rng = np.random.default_rng(41)
-    for seed, (len_lo, len_hi, S, band) in enumerate(
-        [(6, 33, 32, 3), (8, 64, 64, 5)]
-    ):
-        K, d, ti = 16, 4, 8
-        lens = np.sort(
-            np.random.default_rng(seed).integers(len_lo, len_hi, K)
-        ).astype(np.int32)
-        feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-        for k in range(K):
-            feats[k, lens[k]:] = 0.0
-        nT = K // ti
-        rep = tile_rep_lengths(lens, nT, ti, K)
-        tmin = [int(lens[t * ti:(t + 1) * ti].min()) for t in range(nT)]
-        tmax = [int(lens[t * ti:(t + 1) * ti].max()) for t in range(nT)]
-        wv, kmax = 0, 1
-        prs = [(0, 0), (1, 0), (1, 1)]   # incl. diagonal pairs: slope > 1
-        for a_, b_ in prs:
-            w, k2 = diag_class_bounds(
-                band, tmin[a_], tmax[a_], tmin[b_], tmax[b_]
-            )
-            wv, kmax = max(wv, w), max(kmax, k2)
-        # rows = S keeps UR_eff = 8 so the hoisted path is actually
-        # exercised (dead rows beyond each length are contract-handled).
-        kw = dict(ti=ti, band=band, wv_max=wv, kmax=kmax,
-                  rows=S, interpret=True)
-        ii = jnp.asarray([p[0] for p in prs], np.int32)
-        jj = jnp.asarray([p[1] for p in prs], np.int32)
-        fj, lj, rj = jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep)
-        base = np.asarray(dtw_tile_lane_diag_pairs(
-            fj, lj, rj, ii, jj, hoist_build=False, **kw))
-        got = np.asarray(dtw_tile_lane_diag_pairs(
-            fj, lj, rj, ii, jj, hoist_build=True, **kw))
-        np.testing.assert_array_equal(got, base)
-        # Real (non-self) pairs must carry finite distances — the drift
-        # budget actually covered the frame (not everything poisoned).
-        assert np.isfinite(got[1]).all()
-
-
-def test_lane_diag_hoist_understated_kmax_poisons_loudly():
-    # The hoist drift budget ww_ext is sized from kmax.  dyn_roll's carry
-    # realignment tolerates an understated kmax, but the hoisted window
-    # cannot — the kernel must return +inf for affected rows (the same
-    # loud surface as a too-small wv), never silently wrong values.
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
-
-    rng = np.random.default_rng(43)
-    K, S, d, ti, band = 8, 64, 3, 4, 2
-    # Extreme slope: A tile lengths ~8, B tile lengths ~64 -> slope ~9,
-    # in-block drift over UR=8 rows >> ww_ext(kmax=1) = 8.
-    lens = np.array([7, 8, 8, 8, 60, 62, 63, 64], np.int32)
-    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-    rep = tile_rep_lengths(lens, 2, ti, K)
-    kw = dict(ti=ti, band=band, wv_max=64, rows=8, hoist_build=True,
-              interpret=True)
-    ii = jnp.asarray([0], np.int32)
-    jj = jnp.asarray([1], np.int32)
-    fj, lj, rj = jnp.asarray(feats), jnp.asarray(lens), jnp.asarray(rep)
-    honest = np.asarray(dtw_tile_lane_diag_pairs(
-        fj, lj, rj, ii, jj, kmax=9, **kw))
-    assert np.isfinite(honest).all()
-    lied = np.asarray(dtw_tile_lane_diag_pairs(
-        fj, lj, rj, ii, jj, kmax=1, **kw))
-    # Every pair whose DP needed drifted rows is +inf; nothing is a
-    # finite-but-different value.
-    mism = honest != lied
-    assert mism.any()
-    assert np.isinf(lied[mism]).all()
-
-
-def test_lane_diag_stack_rejects_non_divisor():
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        dtw_tile_lane_diag_pairs,
-    )
-
-    feats = jnp.zeros((8, 32, 3), jnp.float32)
-    lens = jnp.full((8,), 8, jnp.int32)
-    rep = jnp.full((2,), 8, jnp.int32)
-    with pytest.raises(ValueError, match="stack"):
-        dtw_tile_lane_diag_pairs(
-            feats, lens, rep,
-            jnp.asarray([0], np.int32), jnp.asarray([1], np.int32),
-            ti=4, band=2, wv_max=4, stack=3, interpret=True,
-        )
-
-
-def test_effective_lane_stack_clamps():
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        effective_lane_stack,
-    )
-
-    # Small shapes keep the request (pow2-floored).
-    assert effective_lane_stack(1, 256, 8) == 1
-    assert effective_lane_stack(4, 256, 8) == 4
-    assert effective_lane_stack(3, 256, 8) == 2   # pow2 FLOOR
-    # SMEM budget: [stack, d+1, S] * 4 B <= 320 KB.  At S=4096, d=16 a
-    # single chain is already 280 KB short of doubling — clamps to 1.
-    assert effective_lane_stack(4, 4096, 16) == 1
-    # Mid shape: S=1024, d=16 -> one chain 68 KB, 4 chains 272 KB <= 320.
-    assert effective_lane_stack(4, 1024, 16) == 4
-    assert effective_lane_stack(8, 1024, 16) == 4
-    # Result always divides 128 (the production lane tile).
-    for req in (1, 2, 4, 8):
-        for S in (128, 512, 1024, 4096):
-            st = effective_lane_stack(req, S, 8)
-            assert st >= 1 and 128 % st == 0 and st <= req
-
-
-def test_diag_tiled_scheduler_stack_identity():
-    # Scheduler-level: cfg.lane_stack=4 must produce a bitwise-identical
-    # distance matrix (lane_stack is pure scheduling — excluded from the
-    # feature fingerprint and block cache tag on that contract).
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
-    from audio_pattern_discovery_tpu.config import DTWConfig
-
-    rng = np.random.default_rng(22)
-    K, L, d = 40, 32, 4
-    feats = rng.normal(0, 1, (K, L, d)).astype(np.float32)
-    lens = rng.integers(8, 33, K).astype(np.int32)
-    kw = dict(interpret=True, geometry=(8, 0, 0), lane=True,
-              chunk_programs=4)
-    D1 = ps.all_pairs_distances_tiled(
-        feats, lens,
-        DTWConfig(band=4, band_mode="diag", normalize="path_len"),
-        **kw)
-    D4 = ps.all_pairs_distances_tiled(
-        feats, lens,
-        DTWConfig(band=4, band_mode="diag", normalize="path_len",
-                  lane_stack=4),
-        **kw)
-    np.testing.assert_array_equal(D1, D4)
-
-
-# ------------------------------------------------------------ bgroup parity
-def test_lane_diag_bgroup_bitwise_parity():
-    # B-tile lane grouping (round 5): `bgroup` consecutive sorted B tiles
-    # lane-concatenated per program.  Per-lane op sequences are identical
-    # to bgroup=1 given the same supertile rep, so the grouped blocks must
-    # be BITWISE equal to the ungrouped kernel's, including +inf
-    # out-of-frame slots.
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
-
-    rng = np.random.default_rng(34)
-    K, S, d, ti, band = 32, 32, 4, 8, 3
-    lens = np.sort(rng.integers(6, 33, K)).astype(np.int32)
-    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-    for k in range(K):
-        feats[k, lens[k]:] = 0.0
-    nT = K // ti
-    tmin = [int(lens[t * ti:(t + 1) * ti].min()) for t in range(nT)]
-    tmax = [int(lens[t * ti:(t + 1) * ti].max()) for t in range(nT)]
-    fj, lj = jnp.asarray(feats), jnp.asarray(lens)
-    rows = int(lens.max())
-    for G in (2, 4):
-        nTB = nT // G
-        rep_g = tile_rep_lengths(lens, nTB, ti * G, K)
-        wv, km = band, 1
-        p2 = [(a, T) for a in range(nT) for T in range(nTB)
-              if a > T * G]  # long-on-rows where possible
-        for a, T in p2:
-            w, k2 = diag_class_bounds(
-                band, tmin[a], tmax[a],
-                min(tmin[T * G:(T + 1) * G]), max(tmax[T * G:(T + 1) * G]))
-            wv, km = max(wv, w), max(km, k2)
-        kw = dict(ti=ti, band=band, wv_max=wv, kmax=km, rows=rows,
-                  interpret=True)
-        grouped = np.asarray(dtw_tile_lane_diag_pairs(
-            fj, lj, jnp.asarray(rep_g),
-            jnp.asarray([p[0] for p in p2], np.int32),
-            jnp.asarray([p[1] for p in p2], np.int32),
-            bgroup=G, **kw))
-        # Ungrouped reference with the SAME (supertile) rep semantics:
-        # rep expanded per single tile, one call per member tile.
-        rep_1 = np.repeat(rep_g, G).astype(np.int32)
-        for u, (a, T) in enumerate(p2):
-            for g in range(G):
-                single = np.asarray(dtw_tile_lane_diag_pairs(
-                    fj, lj, jnp.asarray(rep_1),
-                    jnp.asarray([a], np.int32),
-                    jnp.asarray([T * G + g], np.int32),
-                    bgroup=1, **kw))
-                np.testing.assert_array_equal(
-                    grouped[u, :, g * ti:(g + 1) * ti], single[0]
-                )
-
-
-def test_lane_diag_bgroup_oracle_parity():
-    # Grouped blocks vs the pure-JAX diag path on every non-self pair
-    # (self pairs are Gram-noise around a true 0 and are zeroed by the
-    # scheduler's diagonal handling, never read from the kernel).
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        diag_class_bounds,
-        dtw_tile_lane_diag_pairs,
-        tile_rep_lengths,
-    )
-
-    rng = np.random.default_rng(35)
-    K, S, d, ti, band, G = 32, 32, 4, 8, 3, 2
-    lens = np.sort(rng.integers(6, 33, K)).astype(np.int32)
-    feats = rng.normal(0, 1, (K, S, d)).astype(np.float32)
-    for k in range(K):
-        feats[k, lens[k]:] = 0.0
-    nT, nTB = K // ti, K // ti // G
-    tmin = [int(lens[t * ti:(t + 1) * ti].min()) for t in range(nT)]
-    tmax = [int(lens[t * ti:(t + 1) * ti].max()) for t in range(nT)]
-    rep_g = tile_rep_lengths(lens, nTB, ti * G, K)
-    p2 = [(a, T) for a in range(nT) for T in range(nTB) if a >= T * G]
-    wv, km = band, 1
-    for a, T in p2:
-        w, k2 = diag_class_bounds(
-            band, tmin[a], tmax[a],
-            min(tmin[T * G:(T + 1) * G]), max(tmax[T * G:(T + 1) * G]))
-        wv, km = max(wv, w), max(km, k2)
-    fj, lj = jnp.asarray(feats), jnp.asarray(lens)
-    blocks = np.asarray(dtw_tile_lane_diag_pairs(
-        fj, lj, jnp.asarray(rep_g),
-        jnp.asarray([p[0] for p in p2], np.int32),
-        jnp.asarray([p[1] for p in p2], np.int32),
-        ti=ti, band=band, wv_max=wv, kmax=km, rows=int(lens.max()),
-        bgroup=G, interpret=True))
-    for u, (a, T) in enumerate(p2):
-        gi = np.repeat(np.arange(ti) + a * ti, ti * G)
-        gj = np.tile(np.arange(ti * G) + T * ti * G, ti)
-        ref = np.asarray(dtw_batch(
-            fj[gi], fj[gj], lj[gi], lj[gj], band=band, band_mode="diag"
-        )).reshape(ti, ti * G)
-        ns = (gi != gj).reshape(ti, ti * G)
-        np.testing.assert_allclose(
-            blocks[u][ns], ref[ns], rtol=1e-4, atol=1e-4
-        )
-
-
-def test_lane_diag_bgroup_rejects_bad_shapes():
-    import jax.numpy as jnp
-
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        dtw_tile_lane_diag_pairs,
-    )
-
-    feats = jnp.zeros((24, 32, 3), jnp.float32)
-    lens = jnp.full((24,), 8, jnp.int32)
-    ij = jnp.asarray([0], np.int32)
-    with pytest.raises(ValueError, match="bgroup"):
-        dtw_tile_lane_diag_pairs(
-            feats, lens, jnp.full((1,), 8, jnp.int32), ij, ij,
-            ti=8, band=2, wv_max=4, bgroup=2, interpret=True)  # nT=3 % 2
-    with pytest.raises(ValueError, match="tile_rep"):
-        dtw_tile_lane_diag_pairs(
-            feats, lens, jnp.full((3,), 8, jnp.int32), ij, ij,
-            ti=8, band=2, wv_max=4, bgroup=3, interpret=True)

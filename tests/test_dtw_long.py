@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
-from audio_pattern_discovery_tpu.ops.dtw_long import dtw_long_batch
-from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle
+from audio_pattern_discovery.ops.dtw import dtw_batch
+from audio_pattern_discovery.ops.dtw_long import dtw_long_batch
+from audio_pattern_discovery.oracle.dtw import dtw_oracle
 
 
 def _batch(rng, B, S, d=4):
@@ -91,7 +91,7 @@ def test_single_block_degenerate(rng):
 
 
 def test_longer_than_pallas_ceiling(rng):
-    """A length the VMEM-resident kernel cannot take (S=1024 > 512)."""
+    """A long length (S=1024), past the scan path's comfortable range."""
     a, b, la, lb = _batch(rng, B=2, S=1024, d=3)
     got = np.asarray(
         dtw_long_batch(

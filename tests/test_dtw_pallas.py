@@ -1,86 +1,75 @@
-"""Pallas row-scan DTW kernel vs the lax.scan wavefront and NumPy oracle
-(SURVEY.md SS5.2 'kernel tests').  Runs in interpreter mode on the CPU mesh;
-`tpu`-marked cases compile the real Mosaic kernel on hardware."""
+"""The Pallas tile kernel (ops/dtw_tile.py) against the float64 NumPy
+oracle, in interpret mode: every metric x band x length regime, plus the
+pair enumerator's |len_a - len_b| classes.  The compiled kernel is checked
+on the card by tests marked `gpu` and by chip_smoke.py."""
 
+import zlib
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.io.corpus import pad_and_stack
-from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
-from audio_pattern_discovery_tpu.ops.dtw_pallas import dtw_batch_pallas
-from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle
+from audio_pattern_discovery.ops.dtw_tile import dtw_tile_pairs
+from audio_pattern_discovery.oracle.dtw import dtw_oracle
+
+TI, S, D = 4, 9, 3
 
 
-def _pairs(rng, n, len_range=(5, 60), d=8, pad_to=64):
-    sa = [rng.normal(0, 1, (rng.integers(*len_range), d)).astype(np.float32) for _ in range(n)]
-    sb = [rng.normal(0, 1, (rng.integers(*len_range), d)).astype(np.float32) for _ in range(n)]
-    a, la = pad_and_stack(sa, pad_to=pad_to)
-    b, lb = pad_and_stack(sb, pad_to=pad_to)
-    return sa, sb, a, b, la, lb
+def _lengths(regime: str, rng) -> np.ndarray:
+    K = 2 * TI
+    if regime == "equal":
+        return np.full(K, S, np.int32)
+    if regime == "spread":
+        return np.sort(rng.integers(2, S + 1, K)).astype(np.int32)
+    # length-1 sequences (the scheduler's pad convention) beside full ones
+    lens = np.sort(rng.integers(1, S + 1, K)).astype(np.int32)
+    lens[0] = lens[1] = 1
+    lens[-1] = S
+    return lens
 
 
+@pytest.mark.parametrize("regime", ["equal", "spread", "len1_pad"])
+@pytest.mark.parametrize("band", [None, 4, 16], ids=["unbanded", "diag4", "diag16"])
 @pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean", "cosine"])
-def test_interpret_matches_oracle(rng, metric):
-    sa, sb, a, b, la, lb = _pairs(rng, 6)
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, metric=metric, interpret=True)
+def test_tile_kernel_matches_oracle(metric, band, regime):
+    rng = np.random.default_rng(zlib.crc32(repr((metric, band, regime)).encode()))
+    lens = _lengths(regime, rng)
+    feats = rng.normal(0, 1, (2 * TI, S, D)).astype(np.float32)
+    for k, n in enumerate(lens):
+        feats[k, n:] = 0.0
+    pairs = [(0, 0), (0, 1), (1, 1)]
+    blocks = np.asarray(
+        dtw_tile_pairs(
+            jnp.asarray(feats), jnp.asarray(lens),
+            jnp.asarray([p[0] for p in pairs], jnp.int32),
+            jnp.asarray([p[1] for p in pairs], jnp.int32),
+            ti=TI, band=band, metric=metric, strip=4, interpret=True,
+        )
     )
-    for p in range(6):
-        want = dtw_oracle(sa[p], sb[p], metric=metric)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def test_interpret_banded(rng):
-    sa, sb, a, b, la, lb = _pairs(rng, 5, len_range=(10, 60))
-    got = np.asarray(dtw_batch_pallas(a, b, la, lb, band=7, interpret=True))
-    for p in range(5):
-        want = dtw_oracle(sa[p], sb[p], band=7)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def test_interpret_matches_scan_version(rng):
-    _, _, a, b, la, lb = _pairs(rng, 12, len_range=(3, 64), pad_to=64)
-    scan = np.asarray(dtw_batch(a, b, la, lb))
-    pallas = np.asarray(dtw_batch_pallas(a, b, la, lb, interpret=True))
-    np.testing.assert_allclose(pallas, scan, rtol=1e-3, atol=1e-3)
-
-
-def test_non_multiple_pair_block(rng):
-    """B not divisible by the pair block: padding pairs must be discarded."""
-    _, _, a, b, la, lb = _pairs(rng, 3)
-    got = np.asarray(dtw_batch_pallas(a, b, la, lb, interpret=True))
-    assert got.shape == (3,)
-    want = np.asarray(dtw_batch(a, b, la, lb))
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
-
-
-def test_normalization(rng):
-    _, _, a, b, la, lb = _pairs(rng, 4)
-    raw = np.asarray(dtw_batch_pallas(a, b, la, lb, interpret=True))
-    norm = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, normalize="path_len", interpret=True)
-    )
-    np.testing.assert_allclose(norm, raw / (la + lb), rtol=1e-5)
-
-
-def test_non_power_of_two_seq_len(rng):
-    _, _, a, b, la, lb = _pairs(rng, 4, len_range=(5, 48), pad_to=48)
-    got = np.asarray(dtw_batch_pallas(a, b, la, lb, interpret=True))
-    want = np.asarray(dtw_batch(a, b, la, lb))
-    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-3)
+    for u, (I, J) in enumerate(pairs):
+        for a in range(TI):
+            for b in range(TI):
+                A, B = I * TI + a, J * TI + b
+                want = dtw_oracle(
+                    feats[A, : lens[A]], feats[B, : lens[B]], metric=metric,
+                    band=band, band_mode="diag",
+                )
+                np.testing.assert_allclose(
+                    blocks[u, a, b], want, rtol=1e-5, atol=1e-5,
+                    err_msg=f"pair ({A}, {B}) lengths ({lens[A]}, {lens[B]})",
+                )
 
 
 def test_scan_len_diff_classes():
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         scan_len_diff_classes,
         stripe_width,
     )
 
-    # S=128: the stripe never applies -> a single class (no batch split;
-    # splitting the square kernel's batches was measured perf-neutral).
+    # S=128: the stripe never applies -> a single class.
     assert scan_len_diff_classes(128, 16, True) == [128]
-    # S=512: narrow diffs ride the W=128 stripe, wider ones W=256, the rest
-    # the square kernel; class bounds must track stripe_width exactly.
+    # S=512: narrow diffs share the W=128 stripe, wider ones W=256, the
+    # rest none; class bounds must track stripe_width exactly.
     classes = scan_len_diff_classes(512, 16, True)
     assert classes[-1] == 512
     for lo, hi in zip([0] + [c + 1 for c in classes[:-1]], classes):
@@ -90,232 +79,3 @@ def test_scan_len_diff_classes():
     # Band off or widen off: a single class.
     assert scan_len_diff_classes(128, None, True) == [128]
     assert scan_len_diff_classes(128, 9, False) == [128]
-
-
-def test_interpret_banded_with_len_diff_hint(rng):
-    """A tight max_len_diff hint must not perturb results (it only selects
-    kernel routing); banded distances still match the oracle exactly."""
-    sa, sb, a, b, la, lb = _pairs(rng, 6, len_range=(50, 64), pad_to=64)
-    mld = int(np.abs(la - lb).max())
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, band=7, max_len_diff=mld, interpret=True)
-    )
-    for p in range(6):
-        want = dtw_oracle(sa[p], sb[p], band=7)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def test_interpret_banded_full_length_edges(rng):
-    """Equal full-width lengths: the band touches lane 0 on early rows and
-    lane S-1 on late rows — stresses the masked scan at both row edges."""
-    d, S = 8, 64
-    sa = [rng.normal(0, 1, (S, d)).astype(np.float32) for _ in range(4)]
-    sb = [rng.normal(0, 1, (S, d)).astype(np.float32) for _ in range(4)]
-    a = np.stack(sa)
-    b = np.stack(sb)
-    la = np.full(4, S, np.int32)
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, la, band=5, max_len_diff=0, interpret=True)
-    )
-    for p in range(4):
-        want = dtw_oracle(sa[p], sb[p], band=5)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def test_interpret_len_diff_hint_wide_class(rng):
-    """A wide hint (stripe inapplicable) routes to the square kernel and
-    still matches the oracle."""
-    sa, sb, a, b, la, lb = _pairs(rng, 5, len_range=(5, 64), pad_to=64)
-    mld = max(40, int(np.abs(la - lb).max()))
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, band=7, max_len_diff=mld, interpret=True)
-    )
-    for p in range(5):
-        want = dtw_oracle(sa[p], sb[p], band=7)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def _stripe_case(rng, n, len_range, pad_to, d=6):
-    sa = [rng.normal(0, 1, (rng.integers(*len_range), d)).astype(np.float32) for _ in range(n)]
-    sb = [rng.normal(0, 1, (rng.integers(*len_range), d)).astype(np.float32) for _ in range(n)]
-    a, la = pad_and_stack(sa, pad_to=pad_to)
-    b, lb = pad_and_stack(sb, pad_to=pad_to)
-    return sa, sb, a, b, la, lb
-
-
-@pytest.mark.parametrize("metric", ["euclidean", "sqeuclidean", "cosine"])
-def test_stripe_kernel_matches_oracle(rng, metric):
-    """S=512 banded pairs route to the band-limited stripe kernel (the
-    stripe needs a >= 4x width reduction to win — measured on hardware)."""
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import stripe_width
-
-    sa, sb, a, b, la, lb = _stripe_case(rng, 4, (460, 512), 512)
-    mld = int(np.abs(la - lb).max())
-    assert stripe_width(512, 16, True, mld) == 128, "must take the stripe path"
-    assert stripe_width(256, 16, True, mld) is None, "S=256 stays square"
-    got = np.asarray(
-        dtw_batch_pallas(
-            a, b, la, lb, band=16, max_len_diff=mld, metric=metric,
-            interpret=True,
-        )
-    )
-    for p in range(4):
-        want = dtw_oracle(sa[p], sb[p], band=16, metric=metric)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def test_stripe_kernel_negative_and_positive_diffs(rng):
-    """Stripe slots cover j-i in [-wv, wv]: mixed orientations in one batch."""
-    d, S = 4, 512
-    las = np.array([512, 456, 486, 512], np.int32)
-    lbs = np.array([456, 512, 512, 486], np.int32)
-    sa = [rng.normal(0, 1, (l, d)).astype(np.float32) for l in las]
-    sb = [rng.normal(0, 1, (l, d)).astype(np.float32) for l in lbs]
-    a, la = pad_and_stack(sa, pad_to=S)
-    b, lb = pad_and_stack(sb, pad_to=S)
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, band=12, max_len_diff=56, interpret=True)
-    )
-    for p in range(4):
-        want = dtw_oracle(sa[p], sb[p], band=12)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-def test_stripe_kernel_short_rows_and_tail_panel(rng):
-    """R < S (shorter-first orientation) with R not a multiple of the panel
-    height exercises the partial tail panel (448 rows = 3.5 x RB=128)."""
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import stripe_width
-
-    d = 5
-    sa = [rng.normal(0, 1, (rng.integers(435, 449), d)).astype(np.float32) for _ in range(3)]
-    sb = [rng.normal(0, 1, (rng.integers(440, 499), d)).astype(np.float32) for _ in range(3)]
-    a, la = pad_and_stack(sa, pad_to=448)
-    b, lb = pad_and_stack(sb, pad_to=512)
-    mld = int(np.abs(la.astype(int) - lb.astype(int)).max())
-    assert mld <= 63 and stripe_width(512, 10, True, mld) == 128
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, band=10, max_len_diff=mld, interpret=True)
-    )
-    for p in range(3):
-        want = dtw_oracle(sa[p], sb[p], band=10)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.full
-def test_stripe_kernel_beyond_square_ceiling(rng):
-    """Banded S=2048 (past MAX_KERNEL_SEQ_LEN) runs on the stripe kernel."""
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import pallas_supported
-
-    assert pallas_supported(2048, 16, True, 40)
-    assert not pallas_supported(2048, None, True, None)
-    d, S = 3, 2048
-    las = np.array([2048, 2000], np.int32)
-    lbs = np.array([2010, 2048], np.int32)
-    sa = [rng.normal(0, 1, (l, d)).astype(np.float32) for l in las]
-    sb = [rng.normal(0, 1, (l, d)).astype(np.float32) for l in lbs]
-    a, la = pad_and_stack(sa, pad_to=S)
-    b, lb = pad_and_stack(sb, pad_to=S)
-    got = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, band=16, max_len_diff=48, interpret=True)
-    )
-    for p in range(2):
-        want = dtw_oracle(sa[p], sb[p], band=16)
-        np.testing.assert_allclose(got[p], want, rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.tpu
-def test_tpu_stripe_kernel_compiled(rng):
-    """Compiled Mosaic stripe kernel at S=512 vs the scan wavefront."""
-    sa, sb, a, b, la, lb = _stripe_case(rng, 16, (400, 512), 512)
-    mld = int(np.abs(la - lb).max())
-    scan = np.asarray(dtw_batch(a, b, la, lb, band=16))
-    pallas = np.asarray(
-        dtw_batch_pallas(a, b, la, lb, band=16, max_len_diff=mld)
-    )
-    np.testing.assert_allclose(pallas, scan, rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.tpu
-def test_tpu_compiled_matches_scan(rng):
-    _, _, a, b, la, lb = _pairs(rng, 64, len_range=(20, 128), pad_to=128)
-    scan = np.asarray(dtw_batch(a, b, la, lb))
-    pallas = np.asarray(dtw_batch_pallas(a, b, la, lb))
-    np.testing.assert_allclose(pallas, scan, rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.tpu
-def test_tpu_compiled_banded(rng):
-    _, _, a, b, la, lb = _pairs(rng, 32, len_range=(20, 128), pad_to=128)
-    scan = np.asarray(dtw_batch(a, b, la, lb, band=16))
-    pallas = np.asarray(dtw_batch_pallas(a, b, la, lb, band=16))
-    np.testing.assert_allclose(pallas, scan, rtol=1e-3, atol=1e-3)
-
-
-@pytest.mark.tpu
-def test_self_distance_precision_on_hardware(rng):
-    """Gram matmul must run multi-pass f32 on the MXU: with the default
-    single bf16 pass, self sq-distances come out ~0.2 per cell and identical
-    motifs look dissimilar (review finding, fixed with precision=HIGHEST)."""
-    import jax.numpy as jnp
-
-    a = rng.normal(0, 1, (32, 128, 16)).astype(np.float32)
-    la = jnp.asarray(np.full(32, 128, np.int32))
-    aj = jnp.asarray(a)
-    d_self = np.asarray(dtw_batch_pallas(aj, aj, la, la, band=16))
-    b = jnp.asarray(rng.normal(0, 1, a.shape).astype(np.float32))
-    d_dist = np.asarray(dtw_batch_pallas(aj, b, la, la, band=16))
-    assert np.abs(d_self).max() < 1e-3 * d_dist.mean()
-
-
-@pytest.mark.full
-def test_stripe_vs_square_kernel_parity(rng):
-    """The stripe and square kernels implement the same recurrence through
-    different layouts (shifted stripe + panel skew vs full row); forcing the
-    same pairs through BOTH must agree to float tolerance."""
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        _dtw_batch_stripe,
-        stripe_width,
-    )
-
-    d, S = 5, 512
-    for trial in range(3):
-        n = 4
-        sa = [rng.normal(0, 1, (rng.integers(440, 513), d)).astype(np.float32) for _ in range(n)]
-        sb = [rng.normal(0, 1, (rng.integers(440, 513), d)).astype(np.float32) for _ in range(n)]
-        a, la = pad_and_stack(sa, pad_to=S)
-        b, lb = pad_and_stack(sb, pad_to=S)
-        mld = int(np.abs(la.astype(int) - lb.astype(int)).max())
-        assert stripe_width(S, 16, True, mld) == 128
-        stripe = np.asarray(
-            _dtw_batch_stripe(
-                a, b, la, lb, metric="euclidean", band=16, auto_widen=True,
-                normalize="none", pair_block=None, max_len_diff=mld,
-                interpret=True,
-            )
-        )
-        square = np.asarray(
-            dtw_batch_pallas(
-                a, b, la, lb, band=16, max_len_diff=None, interpret=True,
-            )
-        )
-        np.testing.assert_allclose(stripe, square, rtol=1e-3, atol=1e-3)
-
-
-def test_pair_block_input_cap_high_dim():
-    """Hardware-found OOM: [256, 513, 32] input windows allocate 68 MiB
-    per buffering level (Mosaic pads 513->520 sublanes, 32->128 lanes).
-    default_pair_block must cap PB by the input working set at high d,
-    and leave the latent-width defaults untouched."""
-    from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-        default_pair_block,
-    )
-
-    # latent-width: unchanged by the cap
-    assert default_pair_block(128) == default_pair_block(128, 16)
-    assert default_pair_block(128, 16) == 256
-    # raw 513-bin features: inputs bind well below the cmat-only sizing
-    assert default_pair_block(32, 513) < 256
-    pb = default_pair_block(32, 513)
-    da, sp = 8 * -(-(513 + 2) // 8), 128
-    assert 16 * pb * da * sp <= 64 * 1024 * 1024
-    assert default_pair_block(256, 513) >= 8  # floor, compiler arbitrates

@@ -1,30 +1,24 @@
-"""All-pairs TILE kernel (round 3): parity with the oracle-verified scan
-path, tile-pair indexing, and the tiled scheduler path.
+"""All-pairs tile kernel (ops/dtw_tile.py): parity with the scan path,
+tile-pair indexing, the tile-pair classes, and the tiled scheduler.
 
-The tile kernel exists because the per-pair gather path is HBM-bound on
-this device (~16 KB/pair at ~15 GB/s = its entire ~1.0M pairs/s ceiling;
-BASELINE.md round-3 findings); tiles reuse each sequence across ~K pairs.
-Runs in interpret mode on the CPU suite; on-hardware checks live in
-tests/test_perf_gate.py and tools/kernel_tile_diag.py.
+Runs the kernel in interpret mode on the CPU suite at small tiles; the
+compiled kernel is checked on the card by the `gpu`-marked test below and
+by chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
-from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
-from audio_pattern_discovery_tpu.ops.dtw_pallas import (
-    dtw_tile_pairs,
-    tile_geometry,
-)
+from audio_pattern_discovery.ops.dtw import dtw_batch
+from audio_pattern_discovery.ops.dtw_tile import dtw_tile_pairs
 
-TI, SU, SV = 16, 4, 8
-S, D = 32, 5
+TI = 8
+S, D = 12, 3
 
 
-def _mk(K, seed=0, min_len=6):
+def _mk(K, seed=0, min_len=3):
     rng = np.random.default_rng(seed)
     feats = rng.normal(0, 1, (K, S, D)).astype(np.float32)
     lengths = rng.integers(min_len, S + 1, K).astype(np.int32)
@@ -35,19 +29,30 @@ def _ref_block(feats, lengths, rows, cols, **kw):
     ii = np.repeat(rows, len(cols))
     jj = np.tile(cols, len(rows))
     d = dtw_batch(
-        feats[ii], feats[jj], lengths[ii], lengths[jj], normalize="none", **kw
+        feats[ii], feats[jj], lengths[ii], lengths[jj], normalize="none",
+        band_mode="diag", **kw
     )
     return np.asarray(d).reshape(len(rows), len(cols)).copy()
+
+
+def _compare_self_block(got, ref):
+    # The kernel takes frame differences directly, so self-pairs are 0 up
+    # to the cosine metric's 1 - |x|^2 rounding; the scan path's
+    # |a|^2+|b|^2-2ab form leaves a larger cancellation residue there.  The
+    # scheduler never consumes self-pairs (diagonal forced to 0).
+    assert np.all(np.abs(np.diag(got)) <= 1e-5)
+    np.fill_diagonal(ref, 0.0)
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize(
     "kw",
     [
-        dict(band=8, auto_widen=True, metric="euclidean"),
-        dict(band=8, auto_widen=False, metric="euclidean"),
+        dict(band=3, metric="euclidean"),
+        dict(band=1, metric="euclidean"),
         dict(band=None, metric="euclidean"),
-        dict(band=8, auto_widen=True, metric="sqeuclidean"),
-        dict(band=8, auto_widen=True, metric="cosine"),
+        dict(band=3, metric="sqeuclidean"),
+        dict(band=3, metric="cosine"),
     ],
 )
 def test_tile_kernel_matches_scan_path(kw):
@@ -57,7 +62,7 @@ def test_tile_kernel_matches_scan_path(kw):
             feats, lengths,
             jnp.asarray([0, 0, 1], jnp.int32),
             jnp.asarray([0, 1, 1], jnp.int32),
-            ti=TI, su=SU, sv=SV, interpret=True, **kw,
+            ti=TI, interpret=True, **kw,
         )
     )
     r0 = np.arange(TI)
@@ -67,16 +72,9 @@ def test_tile_kernel_matches_scan_path(kw):
                          **kw)
         got = blocks[u].copy()
         if rows[0] == cols[0]:
-            # Self-pairs: the fused one-dot |a|^2+|b|^2-2ab formulation
-            # leaves an O(1e-5) cancellation residue that sqrt amplifies to
-            # ~5e-3 near zero; the scan path computes the two norm pieces
-            # separately and happens to cancel exactly.  The scheduler
-            # never consumes self-pair values (diagonal forced to 0), so
-            # only bound them here and compare the rest tightly.
-            assert np.all(np.abs(np.diag(got)) <= 2e-2)
-            np.fill_diagonal(got, 0.0)
-            np.fill_diagonal(ref, 0.0)
-        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+            _compare_self_block(got, ref)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
 def test_tile_kernel_extreme_lengths():
@@ -88,207 +86,179 @@ def test_tile_kernel_extreme_lengths():
     lengths[1] = 2
     lengths[2] = S
     lengths = jnp.asarray(lengths)
-    blocks = np.asarray(
-        dtw_tile_pairs(
-            feats, lengths, jnp.asarray([0], jnp.int32),
-            jnp.asarray([0], jnp.int32),
-            ti=TI, su=SU, sv=SV, band=8, interpret=True,
+    for band in (3, None):
+        blocks = np.asarray(
+            dtw_tile_pairs(
+                feats, lengths, jnp.asarray([0], jnp.int32),
+                jnp.asarray([0], jnp.int32),
+                ti=TI, band=band, interpret=True,
+            )
         )
-    )
-    ref = _ref_block(np.asarray(feats), np.asarray(lengths),
-                     np.arange(TI), np.arange(TI), band=8)
-    got = blocks[0].copy()
-    # self-distances carry only the small fused-dot cancellation residue
-    assert np.all(np.abs(np.diag(got)) <= 2e-2)
-    np.fill_diagonal(got, 0.0)
-    np.fill_diagonal(ref, 0.0)
-    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
+        ref = _ref_block(np.asarray(feats), np.asarray(lengths),
+                         np.arange(TI), np.arange(TI), band=band)
+        _compare_self_block(blocks[0].copy(), ref)
 
 
 def test_tiled_scheduler_matches_legacy():
-    """all_pairs_distances(tiled=True) == the per-pair scheduler's D."""
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+    """all_pairs_distances_tiled == the per-pair scheduler's D."""
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         all_pairs_distances,
         all_pairs_distances_tiled,
     )
 
-    feats, lengths = _mk(40, seed=3)
+    feats, lengths = _mk(20, seed=3)
     feats_np = np.asarray(feats)
     lengths_np = np.asarray(lengths)
-    cfg = DTWConfig(band=8, normalize="path_len", band_mode="widen")
+    cfg = DTWConfig(band=3, normalize="path_len")
     D_legacy = all_pairs_distances(feats_np, lengths_np, cfg, tiled=False)
     D_tiled = all_pairs_distances_tiled(
-        feats_np, lengths_np, cfg, interpret=True, geometry=(TI, SU, SV),
+        feats_np, lengths_np, cfg, interpret=True, ti=TI,
     )
     np.testing.assert_allclose(D_tiled, D_legacy, rtol=1e-4, atol=1e-4)
     assert np.allclose(D_tiled, D_tiled.T)
     np.testing.assert_allclose(np.diag(D_tiled), 0.0, atol=1e-6)
 
 
-def test_tiled_scheduler_resume(tmp_path):
-    """Chunk persistence: a second run reuses saved blocks bit-for-bit."""
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+def test_tiled_scheduler_rejects_widen_band():
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         all_pairs_distances_tiled,
     )
 
-    feats, lengths = _mk(40, seed=4)
-    cfg = DTWConfig(band=8, band_mode="widen")
+    feats, lengths = _mk(20, seed=3)
+    with pytest.raises(ValueError, match="diag"):
+        all_pairs_distances_tiled(
+            np.asarray(feats), np.asarray(lengths),
+            DTWConfig(band=3, band_mode="widen"), interpret=True, ti=TI,
+        )
+
+
+def test_tiled_scheduler_resume(tmp_path):
+    """Chunk persistence: a second run reuses saved blocks bit-for-bit."""
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel.pair_scheduler import (
+        all_pairs_distances_tiled,
+    )
+
+    feats, lengths = _mk(20, seed=4)
+    cfg = DTWConfig(band=3)
     stats1: dict = {}
     D1 = all_pairs_distances_tiled(
         np.asarray(feats), np.asarray(lengths), cfg, interpret=True,
-        geometry=(TI, SU, SV), block_dir=tmp_path, stats=stats1,
-        chunk_programs=2,
+        ti=TI, block_dir=tmp_path, stats=stats1, chunk_programs=2,
     )
     stats2: dict = {}
     D2 = all_pairs_distances_tiled(
         np.asarray(feats), np.asarray(lengths), cfg, interpret=True,
-        geometry=(TI, SU, SV), block_dir=tmp_path, stats=stats2,
-        chunk_programs=2,
+        ti=TI, block_dir=tmp_path, stats=stats2, chunk_programs=2,
     )
     np.testing.assert_array_equal(D1, D2)
     assert stats2["dispatch_s"] == 0.0  # everything came from disk
-
-
-def test_tile_geometry_ranges():
-    assert tile_geometry(64) == (128, 8, 64)
-    assert tile_geometry(128) == (128, 8, 64)
-    assert tile_geometry(256) == (128, 8, 16)
-    assert tile_geometry(257) is None
-    assert tile_geometry(512) is None
-    # feat_dim gates the VMEM input working set (hardware-found OOM:
-    # raw 513-bin features with the AE disabled must route per-pair)
-    assert tile_geometry(128, 16) == (128, 8, 64)
-    assert tile_geometry(256, 16) == (128, 8, 16)
-    assert tile_geometry(128, 513) is None
-    assert tile_geometry(256, 513) is None
-    assert tile_geometry(128, 200) == (128, 8, 64)
 
 
 def test_tile_block_transpose_symmetry():
     """Block (I, J) must equal block (J, I) transposed — catches any
     row/column orientation bug in the tile indexing or extraction."""
     feats, lengths = _mk(2 * TI, seed=5)
-    blocks = np.asarray(
-        dtw_tile_pairs(
-            feats, lengths,
-            jnp.asarray([0, 1], jnp.int32), jnp.asarray([1, 0], jnp.int32),
-            ti=TI, su=SU, sv=SV, band=8, interpret=True,
+    for band in (3, None):
+        blocks = np.asarray(
+            dtw_tile_pairs(
+                feats, lengths,
+                jnp.asarray([0, 1], jnp.int32), jnp.asarray([1, 0], jnp.int32),
+                ti=TI, band=band, interpret=True,
+            )
         )
-    )
-    np.testing.assert_allclose(blocks[0], blocks[1].T, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(blocks[0], blocks[1].T, rtol=1e-5,
+                                   atol=1e-5)
 
 
-def test_tile_rows_and_scan_classes_match_full():
-    """Tight static rows/scan bounds must be value-identical to the full
-    ones whenever they satisfy the documented contracts."""
-    feats, lengths = _mk(TI, seed=6, min_len=6)
-    lengths = jnp.asarray(np.minimum(np.asarray(lengths), 24))  # rows<=24
-    full = np.asarray(dtw_tile_pairs(
-        feats, lengths, jnp.asarray([0], jnp.int32),
-        jnp.asarray([0], jnp.int32),
-        ti=TI, su=SU, sv=SV, band=4, interpret=True,
-    ))
-    # rows=24 covers every la; scan=5 covers 2*wv+1 <= 2*(4+18)+1 = 45 <= 32?
-    # no — use the safe bound: wv <= max(band, maxdd)=18 -> live 37 -> scan 6
-    # exceeds full (5 at S=32), so scan stays full; rows tightens.
-    tight = np.asarray(dtw_tile_pairs(
-        feats, lengths, jnp.asarray([0], jnp.int32),
-        jnp.asarray([0], jnp.int32),
-        ti=TI, su=SU, sv=SV, band=4, rows=24, interpret=True,
-    ))
-    np.testing.assert_array_equal(full, tight)
-
-
-def test_tile_gram_precision_probe_param():
-    """gram_precision is a PROBE-ONLY static arg on dtw_tile_pairs (the
-    production path is always "highest"): Mosaic lowers only HIGHEST and
-    DEFAULT, and the round-3 hardware probe measured the whole 6-pass Gram
-    at ~10-15% of the kernel, so no faster tier was adopted (BASELINE.md).
-    On CPU interpret every tier is exact f32 — both must agree, which pins
-    the plumbing without claiming hardware numerics.  (On the real-TPU
-    suite interpret-mode dots still honor the backend's precision, where
-    DEFAULT is a single bf16 pass — exact equality only holds on CPU.)"""
-    if jax.devices()[0].platform != "cpu":
-        pytest.skip("exact cross-precision equality holds only on CPU")
-    feats, lengths = _mk(TI, seed=8)
-    kw = dict(ti=TI, su=SU, sv=SV, band=8, interpret=True)
+def test_tile_strip_width_bitwise_identical():
+    """The strip width only regroups the same cell updates: results must be
+    bitwise identical across widths (and across strip boundaries)."""
+    feats, lengths = _mk(TI, seed=6)
     ii = jnp.asarray([0], jnp.int32)
-    hi = np.asarray(
-        dtw_tile_pairs(feats, lengths, ii, ii,
-                       gram_precision="highest", **kw)
-    )
-    df = np.asarray(
-        dtw_tile_pairs(feats, lengths, ii, ii,
-                       gram_precision="default", **kw)
-    )
-    np.testing.assert_array_equal(hi, df)
+    for band in (2, None):
+        outs = [
+            np.asarray(dtw_tile_pairs(feats, lengths, ii, ii, ti=TI,
+                                      band=band, strip=w, interpret=True))
+            for w in (1, 4, 16)
+        ]
+        np.testing.assert_array_equal(outs[0], outs[1])
+        np.testing.assert_array_equal(outs[0], outs[2])
 
 
-@pytest.mark.tpu
-def test_tpu_tile_kernel_metrics_compiled():
-    """Compiled Mosaic tile kernel for the NON-default metrics (cosine,
-    sqeuclidean) vs the scan path — the CPU suite covers these only in
-    interpret mode, and Mosaic lowering differences (normalization path,
-    no sqrt) deserve one on-chip check each."""
+def test_tile_kernel_rejects_bad_shapes():
+    feats, lengths = _mk(12, seed=7)
+    ii = jnp.asarray([0], jnp.int32)
+    with pytest.raises(ValueError, match="multiple"):
+        dtw_tile_pairs(feats, lengths, ii, ii, ti=8, interpret=True)
+    feats, lengths = _mk(12, seed=7)
+    with pytest.raises(ValueError, match="power of two"):
+        dtw_tile_pairs(feats, lengths, ii, ii, ti=6, interpret=True)
+    with pytest.raises(ValueError, match="metric"):
+        dtw_tile_pairs(feats, lengths, ii, ii, ti=4, metric="l1",
+                       interpret=True)
+
+
+@pytest.mark.gpu
+def test_gpu_tile_kernel_compiled():
+    """The compiled kernel at the production tile width vs the scan path,
+    for every metric and both band modes (self-pairs excepted, see
+    _compare_self_block)."""
     rng = np.random.default_rng(13)
-    S, d, ti_, su_, sv_ = 128, 16, 128, 8, 64
-    K = 2 * ti_
-    feats = jnp.asarray(rng.normal(0, 1, (K, S, d)).astype(np.float32))
-    lengths = jnp.asarray(rng.integers(S - 12, S + 1, K).astype(np.int32))
+    S_, d, ti = 128, 16, 128
+    K = 2 * ti
+    feats = jnp.asarray(rng.normal(0, 1, (K, S_, d)).astype(np.float32))
+    lengths = jnp.asarray(rng.integers(S_ // 2, S_ + 1, K).astype(np.int32))
     ii = jnp.asarray([0], jnp.int32)
     jj = jnp.asarray([1], jnp.int32)
     feats_np = np.asarray(feats)
     lengths_np = np.asarray(lengths)
-    sample = np.random.default_rng(14).integers(0, ti_, (64, 2))
-    for metric in ("cosine", "sqeuclidean"):
-        blocks = np.asarray(
-            dtw_tile_pairs(
-                feats, lengths, ii, jj, ti=ti_, su=su_, sv=sv_,
-                band=16, metric=metric,
-            )
-        )
-        gi = sample[:, 0]
-        gj = ti_ + sample[:, 1]
-        ref = np.asarray(dtw_batch(
-            feats_np[gi], feats_np[gj], lengths_np[gi], lengths_np[gj],
-            band=16, metric=metric, normalize="none",
-        ))
-        got = blocks[0][sample[:, 0], sample[:, 1]]
-        np.testing.assert_allclose(got, ref, rtol=2e-3, atol=2e-3)
+    sample = np.random.default_rng(14).integers(0, ti, (64, 2))
+    for metric in ("euclidean", "sqeuclidean", "cosine"):
+        for band in (16, None):
+            blocks = np.asarray(dtw_tile_pairs(
+                feats, lengths, ii, jj, ti=ti, band=band, metric=metric,
+            ))
+            gi = sample[:, 0]
+            gj = ti + sample[:, 1]
+            ref = np.asarray(dtw_batch(
+                feats_np[gi], feats_np[gj], lengths_np[gi], lengths_np[gj],
+                band=band, band_mode="diag", metric=metric, normalize="none",
+            ))
+            got = blocks[0][sample[:, 0], sample[:, 1]]
+            np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-4)
 
 
-def test_tile_pair_class_contracts():
-    """make_tile_pair_class_fn's outputs must satisfy dtw_tile_pairs's
-    correctness contracts: rows_cls covers every A-tile length and
-    2^scan_cls covers the live band width for every pair in the class."""
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
-        make_tile_pair_class_fn,
+def test_tile_class_contracts():
+    """make_tile_class_fn's keys bound both tiles' real lengths, stay
+    within L, and ignore pad entries."""
+    from audio_pattern_discovery.parallel.pair_scheduler import (
+        make_tile_class_fn,
     )
 
     rng = np.random.default_rng(7)
-    ti_, nT, Lp, band = 16, 6, 128, 16
-    lens = np.sort(rng.integers(1, Lp + 1, nT * ti_)).astype(np.int32)
-    fn = make_tile_pair_class_fn(lens, nT, ti_, Lp, band, True)
+    ti_, nT, L = 16, 6, 128
+    n_real = nT * ti_ - 5
+    lens = np.ones(nT * ti_, np.int32)
+    lens[:n_real] = np.sort(rng.integers(1, L + 1, n_real))
+    fn = make_tile_class_fn(lens, nT, ti_, L, n_real)
     for i in range(nT):
         for j in range(i, nT):
-            rows_cls, scan_cls = fn(i, j)
-            la = lens[i * ti_ : (i + 1) * ti_]
-            lb = lens[j * ti_ : (j + 1) * ti_]
-            assert rows_cls >= la.max()
-            assert rows_cls <= Lp
-            wv = np.maximum(band, np.abs(la[:, None] - lb[None, :]))
-            live = 2 * np.minimum(wv, Lp).max() + 1
-            assert (1 << scan_cls) >= min(live, Lp), (i, j, live, scan_cls)
+            rows_cls, width_cls = fn(i, j)
+            li = lens[i * ti_ : min((i + 1) * ti_, n_real)]
+            lj = lens[j * ti_ : min((j + 1) * ti_, n_real)]
+            assert li.max() <= rows_cls <= L
+            assert lj.max() <= width_cls <= L
 
 
 def test_merge_thin_classes():
-    """Thin (rows, scan) classes merge contract-monotonically: programs
-    are preserved, every program's merged class dominates its original
-    one pointwise, and no surviving class is thin (unless only one
-    class remains)."""
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+    """Thin (rows, width) classes merge monotonically: tile-pairs are
+    preserved, every tile-pair's merged class dominates its original one
+    pointwise, and no surviving class is thin (unless only one class
+    remains)."""
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         _merge_thin_classes,
     )
 
@@ -314,7 +284,7 @@ def test_merge_thin_classes():
 
 
 def test_merge_single_class_untouched():
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         _merge_thin_classes,
     )
 
@@ -325,9 +295,9 @@ def test_merge_single_class_untouched():
 
 def test_merge_cost_ceiling_keeps_skewed_thin_class():
     """A thin class whose only neighbors are huge cheap-rows bulk classes
-    must KEEP its own executable: upgrading 10k programs to rows=128
-    costs far more device time than the one activation saved."""
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+    must keep its own chunks: upgrading 10k tile-pairs to rows=128 costs
+    far more device time than one poorly filled call."""
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         _merge_thin_classes,
     )
 
@@ -342,19 +312,17 @@ def test_scatter_strategies_identical(monkeypatch):
     """The size-based hybrid (direct original-order scatter vs sorted-space
     + final gather) must be a pure implementation detail: same D either
     side of the threshold."""
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel import pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel import pair_scheduler as ps
 
-    feats, lengths = _mk(40, seed=9)
-    cfg = DTWConfig(band=8, normalize="path_len", band_mode="widen")
+    feats, lengths = _mk(20, seed=9)
+    cfg = DTWConfig(band=3, normalize="path_len")
     D_direct = ps.all_pairs_distances_tiled(
-        np.asarray(feats), np.asarray(lengths), cfg, interpret=True,
-        geometry=(TI, SU, SV),
+        np.asarray(feats), np.asarray(lengths), cfg, interpret=True, ti=TI,
     )
     monkeypatch.setattr(ps, "_DIRECT_SCATTER_BYTES", 0)
     D_sorted = ps.all_pairs_distances_tiled(
-        np.asarray(feats), np.asarray(lengths), cfg, interpret=True,
-        geometry=(TI, SU, SV),
+        np.asarray(feats), np.asarray(lengths), cfg, interpret=True, ti=TI,
     )
     np.testing.assert_array_equal(D_direct, D_sorted)
 
@@ -363,17 +331,17 @@ def test_native_scatter_identical(monkeypatch):
     """The fused C++ scatter (native/apd_native.cc) must be a pure
     implementation detail: bitwise-identical D to the NumPy chain on BOTH
     the direct and the strip-buffered assembly paths, normalized or not."""
-    from audio_pattern_discovery_tpu import native
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel import pair_scheduler as ps
+    from audio_pattern_discovery import native
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel import pair_scheduler as ps
 
     if not native.available():
         pytest.skip("native library unavailable")
-    # 42 = 10 full tiles + a 2-row partial: exercises the nr/nc < ti edge
-    feats, lengths = _mk(42, seed=13)
+    # 21 = 2 full tiles + a 5-row partial: exercises the nr/nc < ti edge
+    feats, lengths = _mk(21, seed=13)
     for norm in ("path_len", "none"):
-        cfg = DTWConfig(band=8, normalize=norm, band_mode="widen")
-        kw = dict(interpret=True, geometry=(TI, SU, SV))
+        cfg = DTWConfig(band=3, normalize=norm)
+        kw = dict(interpret=True, ti=TI)
         monkeypatch.delenv("APD_NO_NATIVE_SCATTER", raising=False)
         D_nat = ps.all_pairs_distances_tiled(
             np.asarray(feats), np.asarray(lengths), cfg, **kw
@@ -402,12 +370,12 @@ def test_threaded_scatter_identical(monkeypatch, tmp_path):
     """Matrix assembly on the scatter worker thread must be a pure
     implementation detail: same D (bitwise) as the APD_SYNC_SCATTER=1
     inline path, on both the fresh-run and the block-resume route."""
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel import pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel import pair_scheduler as ps
 
-    feats, lengths = _mk(40, seed=11)
-    cfg = DTWConfig(band=8, normalize="path_len", band_mode="widen")
-    kw = dict(interpret=True, geometry=(TI, SU, SV))
+    feats, lengths = _mk(20, seed=11)
+    cfg = DTWConfig(band=3, normalize="path_len")
+    kw = dict(interpret=True, ti=TI)
     bdir = tmp_path / "blocks"
     D_thr = ps.all_pairs_distances_tiled(
         np.asarray(feats), np.asarray(lengths), cfg, block_dir=bdir, **kw
@@ -429,12 +397,12 @@ def test_threaded_scatter_error_propagates(monkeypatch):
     must surface as an exception on the caller's thread, not hang or pass
     silently.  (np.triu lives on the NumPy scatter path only, so the
     native fast path is disabled for the injection.)"""
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel import pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel import pair_scheduler as ps
 
     monkeypatch.setenv("APD_NO_NATIVE_SCATTER", "1")
-    feats, lengths = _mk(40, seed=12)
-    cfg = DTWConfig(band=8, normalize="path_len", band_mode="widen")
+    feats, lengths = _mk(20, seed=12)
+    cfg = DTWConfig(band=3, normalize="path_len")
 
     def boom(*a, **k):
         raise RuntimeError("scatter boom")
@@ -447,7 +415,7 @@ def test_threaded_scatter_error_propagates(monkeypatch):
         with pytest.raises(RuntimeError, match="scatter boom"):
             ps.all_pairs_distances_tiled(
                 np.asarray(feats), np.asarray(lengths), cfg,
-                interpret=True, geometry=(TI, SU, SV),
+                interpret=True, ti=TI,
             )
 
 
@@ -456,76 +424,59 @@ def test_tiled_scheduler_known_pairs_update():
     (old sequences group into leading tiles) and the result matches the full
     run.  The boundary tile mixing old/new recomputes some old x old pairs;
     identical features make that overwrite a numerical no-op."""
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         all_pairs_distances_tiled,
     )
 
-    feats, lengths = _mk(40, seed=5)
+    feats, lengths = _mk(20, seed=5)
     feats_np, lengths_np = np.asarray(feats), np.asarray(lengths)
-    cfg = DTWConfig(band=8, normalize="path_len", band_mode="widen")
+    cfg = DTWConfig(band=None, normalize="path_len")
     D_full = all_pairs_distances_tiled(
-        feats_np, lengths_np, cfg, interpret=True, geometry=(TI, SU, SV),
+        feats_np, lengths_np, cfg, interpret=True, ti=TI,
     )
-    k_old = 25
+    k_old = 12
     stats: dict = {}
     D_up = all_pairs_distances_tiled(
-        feats_np, lengths_np, cfg, interpret=True, geometry=(TI, SU, SV),
+        feats_np, lengths_np, cfg, interpret=True, ti=TI,
         known=(k_old, D_full[:k_old, :k_old]), stats=stats,
     )
     np.testing.assert_allclose(D_up, D_full, rtol=1e-5, atol=1e-5)
-    # 40 seqs pad to 48 = 3 tiles of TI=16; old (25) fills tile 0 and most
+    # 20 seqs pad to 24 = 3 tiles of TI=8; old (12) fills tile 0 and half
     # of tile 1, so exactly the (0, 0) pure-old tile-pair is skipped.
     assert stats["tile_programs"] == 5
-    assert stats["pairs"] == 40 * 39 // 2 - k_old * (k_old - 1) // 2
+    assert stats["pairs"] == 20 * 19 // 2 - k_old * (k_old - 1) // 2
 
 
-def test_tile_pair_class_non_monotone_lengths():
+def test_tile_class_non_monotone_lengths():
     """Update-mode grouped permutations are not globally length-sorted: a
-    NEW tile of short sequences can pair as J with a longer OLD tile I.
-    The widening bound must cover both orientations or the scan depth
-    under-provisions and the banded min-plus propagation silently
-    truncates (review finding, round-3 continuation)."""
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
-        make_tile_pair_class_fn,
+    NEW tile of short sequences can pair with a longer OLD tile.  The class
+    key must take each tile's own maximum, in either orientation."""
+    from audio_pattern_discovery.parallel.pair_scheduler import (
+        make_tile_class_fn,
     )
 
     # tile 0 = old/long (100-110 frames), tile 1 = new/short (18-20).
     lens = np.array([100] * 8 + [110] * 8 + [20] * 8 + [18] * 8, np.int32)
-    fn = make_tile_pair_class_fn(
-        lens, nT=2, ti=16, Lp=128, band=16, auto_widen=True
-    )
-    rows01, scan01 = fn(0, 1)
-    full_scan = (128 - 1).bit_length()
-    # pairs span |110 - 18| = 92 >> the 2^6 small-scan window
-    assert scan01 == full_scan
-    assert rows01 >= 110  # A-tile (old) rows, not the shorter side's
-    # the sorted regime keeps its tight small class
-    lens_sorted = np.sort(lens)
-    fn2 = make_tile_pair_class_fn(
-        lens_sorted, nT=2, ti=16, Lp=128, band=16, auto_widen=True
-    )
-    assert fn2(0, 1)[1] == full_scan  # 18..110 really does span wide
-    lens_tight = np.array([30] * 16 + [40] * 16, np.int32)
-    fn3 = make_tile_pair_class_fn(
-        lens_tight, nT=2, ti=16, Lp=128, band=16, auto_widen=True
-    )
-    assert fn3(0, 1)[1] == min(6, full_scan)
+    fn = make_tile_class_fn(lens, nT=2, ti=16, L=128, n_real=32)
+    rows01, width01 = fn(0, 1)
+    assert rows01 >= 110 and width01 >= 20
+    rows10, width10 = fn(1, 0)
+    assert rows10 >= 20 and width10 >= 110
 
 
 def test_failed_tiled_job_does_not_leak_scatter_thread(monkeypatch):
     """A dispatch failure escaping the chunk loop must still join the
-    scatter worker (ADVICE r3: each leaked daemon thread pins the full
-    K x K D closure).  Three failed calls -> zero live apd-scatter
-    threads."""
+    scatter worker (each leaked daemon thread pins the full K x K D
+    closure).  Three failed calls -> zero live apd-scatter threads."""
     import threading
 
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
-    from audio_pattern_discovery_tpu.config import DTWConfig
+    import audio_pattern_discovery.parallel.pair_scheduler as ps
+    from audio_pattern_discovery.config import DTWConfig
 
-    feats, lengths = _mk(40, seed=5)
+    feats, lengths = _mk(20, seed=5)
     feats_np, lengths_np = np.asarray(feats), np.asarray(lengths)
-    cfg = DTWConfig(band=8, band_mode="widen")
+    cfg = DTWConfig(band=3)
 
     def boom(*a, **kw):
         raise RuntimeError("injected dispatch failure")
@@ -534,10 +485,43 @@ def test_failed_tiled_job_does_not_leak_scatter_thread(monkeypatch):
     for _ in range(3):
         with pytest.raises(RuntimeError, match="injected"):
             ps.all_pairs_distances_tiled(
-                feats_np, lengths_np, cfg, interpret=True,
-                geometry=(TI, SU, SV), max_retries=0,
+                feats_np, lengths_np, cfg, interpret=True, ti=TI,
+                max_retries=0,
             )
     leaked = [
         t for t in threading.enumerate() if t.name.startswith("apd-scatter")
     ]
     assert leaked == []
+
+
+def test_scratch_budget_caps_chunk_size(monkeypatch):
+    """Long sequences shrink the tile-pairs per call so the kernel's
+    boundary scratch stays under its budget; the matrix is unchanged."""
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.ops.dtw_tile import scratch_bytes
+    from audio_pattern_discovery.parallel import pair_scheduler as ps
+
+    feats, lengths = _mk(20, seed=14)
+    cfg = DTWConfig(band=None, normalize="path_len")
+    kw = dict(interpret=True, ti=TI, chunk_programs=64)
+    stats_big: dict = {}
+    D_big = ps.all_pairs_distances_tiled(
+        np.asarray(feats), np.asarray(lengths), cfg, stats=stats_big, **kw
+    )
+    monkeypatch.setattr(ps, "_TILE_SCRATCH_BUDGET", scratch_bytes(2, TI, S))
+    stats_small: dict = {}
+    D_small = ps.all_pairs_distances_tiled(
+        np.asarray(feats), np.asarray(lengths), cfg, stats=stats_small, **kw
+    )
+    np.testing.assert_array_equal(D_big, D_small)
+    assert stats_small["blocks"] >= stats_small["tile_programs"] // 2
+    assert stats_small["blocks"] > stats_big["blocks"]
+
+
+@pytest.mark.parametrize(
+    "band, d, want", [(16, 16, 8), (None, 16, 16), (None, 513, 32), (4, 513, 8)]
+)
+def test_default_strip_by_shape(band, d, want):
+    from audio_pattern_discovery.ops.dtw_tile import default_strip
+
+    assert default_strip(band, d) == want

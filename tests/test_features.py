@@ -5,15 +5,15 @@ segmentation invariance, and e2e discovery on the new feature types."""
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import PipelineConfig, SpectrogramConfig
-from audio_pattern_discovery_tpu.ops.spectrogram import (
+from audio_pattern_discovery.config import PipelineConfig, SpectrogramConfig
+from audio_pattern_discovery.ops.spectrogram import (
     batched_spectrogram,
     dct_ortho,
     feature_pad_fill,
     mel_filterbank,
     spectrogram_corpus,
 )
-from audio_pattern_discovery_tpu.oracle.stft import (
+from audio_pattern_discovery.oracle.stft import (
     mel_filterbank_oracle,
     mel_oracle,
     mfcc_oracle,
@@ -178,8 +178,8 @@ def test_tile_vs_single_shot_identity(rng, feature, return_device):
 def test_segmentation_invariant_across_features(rng):
     """The energy gate sees the raw spectrum whatever the feature head, so
     the segment table is identical for bins / mel / mfcc."""
-    from audio_pattern_discovery_tpu.config import SegmentationConfig
-    from audio_pattern_discovery_tpu.ops.segmentation import segment_corpus
+    from audio_pattern_discovery.config import SegmentationConfig
+    from audio_pattern_discovery.ops.segmentation import segment_corpus
 
     # A clip with two loud bursts over quiet noise.
     n = 24_000
@@ -208,9 +208,9 @@ def test_segmentation_invariant_across_features(rng):
 def test_e2e_discovery_on_feature(tmp_path, feature):
     """Planted motifs are still discovered end-to-end with the mel/MFCC
     front end (AE consumes the lower-dim features directly)."""
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
-    from audio_pattern_discovery_tpu.config import (
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
+    from audio_pattern_discovery.config import (
         AutoencoderConfig, DTWConfig, SegmentationConfig,
     )
 
@@ -250,11 +250,11 @@ def test_feature_config_validation():
         ).validate()
 
 
-@pytest.mark.tpu
-def test_tpu_mfcc_head_compiled(rng):
+@pytest.mark.gpu
+def test_gpu_mfcc_head_compiled(rng):
     """The fused mel/MFCC head compiles and matches the float64 oracle on
-    real hardware (the filterbank/DCT matmuls ride the MXU there, unlike
-    the CPU-suite runs)."""
+    the card (the filterbank/DCT matmuls run in XLA's GPU precision there,
+    unlike the CPU-suite runs)."""
     sig = rng.normal(0, 0.3, 6000).astype(np.float32)
     for feature in ("mel", "mfcc"):
         feats, counts = batched_spectrogram(

@@ -4,7 +4,7 @@ their presence in the discovery manifest."""
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.cluster.metrics import (
+from audio_pattern_discovery.cluster.metrics import (
     cluster_quality,
     silhouette_samples,
 )
@@ -55,9 +55,9 @@ def test_well_separated_beats_random(rng):
 
 
 def test_manifest_carries_quality(tmp_path):
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     corpus = tmp_path / "corpus"
     make_corpus(corpus, n_clips=6, n_motifs=2, occurrences_per_clip=2,

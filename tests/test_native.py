@@ -3,19 +3,22 @@
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu import native
-from audio_pattern_discovery_tpu.cluster.agglomerative import (
+from audio_pattern_discovery import native
+from audio_pattern_discovery.cluster.agglomerative import (
     _sort_and_relabel,
     nn_chain_linkage,
 )
-from audio_pattern_discovery_tpu.io.corpus import pad_and_stack
-from audio_pattern_discovery_tpu.io.wavio import read_wav, write_wav
-from audio_pattern_discovery_tpu.oracle.cluster import linkage_oracle
-from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle
+from audio_pattern_discovery.io.corpus import pad_and_stack
+from audio_pattern_discovery.io.wavio import read_wav, write_wav
+from audio_pattern_discovery.oracle.cluster import linkage_oracle
+from audio_pattern_discovery.oracle.dtw import dtw_oracle
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native library unavailable"
-)
+
+
+@pytest.fixture(autouse=True)
+def _native_lib():
+    if not native.available():
+        pytest.skip("native library unavailable")
 
 
 def test_native_dtw_matches_oracle(rng):
@@ -77,8 +80,8 @@ def test_truncated_wav_does_not_crash(tmp_path, rng):
     """Corrupt/truncated WAVs must be rejected or clamped, never OOB-read."""
     import struct
 
-    from audio_pattern_discovery_tpu import native
-    from audio_pattern_discovery_tpu.io.wavio import write_wav
+    from audio_pattern_discovery import native
+    from audio_pattern_discovery.io.wavio import write_wav
 
     if not native.available():
         import pytest
@@ -103,8 +106,8 @@ def test_truncated_wav_does_not_crash(tmp_path, rng):
 
 def test_nn_chain_all_inf_distances():
     """All-infinite rows (infeasible banded pairs) must not crash NN-chain."""
-    from audio_pattern_discovery_tpu import native
-    from audio_pattern_discovery_tpu.cluster.agglomerative import linkage
+    from audio_pattern_discovery import native
+    from audio_pattern_discovery.cluster.agglomerative import linkage
 
     if not native.available():
         import pytest
@@ -118,7 +121,7 @@ def test_nn_chain_all_inf_distances():
 
 
 def test_dtw_batch_cpu_rejects_mismatched_shapes(rng):
-    from audio_pattern_discovery_tpu import native
+    from audio_pattern_discovery import native
 
     if not native.available():
         import pytest
@@ -134,7 +137,7 @@ def test_dtw_batch_cpu_rejects_mismatched_shapes(rng):
 
 
 def test_dtw_batch_cpu_empty_sequence_is_inf(rng):
-    from audio_pattern_discovery_tpu import native
+    from audio_pattern_discovery import native
 
     if not native.available():
         import pytest
@@ -148,10 +151,10 @@ def test_dtw_batch_cpu_empty_sequence_is_inf(rng):
 
 
 def test_native_dtw_diag_matches_oracle():
-    native = pytest.importorskip("audio_pattern_discovery_tpu.native")
+    native = pytest.importorskip("audio_pattern_discovery.native")
     if not native.available():
         pytest.skip("native lib unavailable")
-    from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle
+    from audio_pattern_discovery.oracle.dtw import dtw_oracle
 
     rng = np.random.default_rng(21)
     B, S, d = 12, 40, 4

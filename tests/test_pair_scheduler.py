@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import DTWConfig
-from audio_pattern_discovery_tpu.oracle.dtw import dtw_oracle
-from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+from audio_pattern_discovery.config import DTWConfig
+from audio_pattern_discovery.oracle.dtw import dtw_oracle
+from audio_pattern_discovery.parallel.pair_scheduler import (
     all_pairs_distances,
     bucket_lengths,
     enumerate_pair_blocks,
@@ -128,7 +128,7 @@ def test_banded_all_pairs(rng, band_mode):
 
 def test_block_retry_on_transient_failure(rng, monkeypatch):
     """A block whose materialization raises once is retried (SS6.3)."""
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
+    import audio_pattern_discovery.parallel.pair_scheduler as ps
 
     feats, lengths = _features(rng, K=6, L=32)
     cfg = DTWConfig(pair_batch=4, max_seq_len=32, use_pallas=False)
@@ -152,7 +152,7 @@ def test_block_retry_on_transient_failure(rng, monkeypatch):
 
 
 def test_block_retry_exhausted_raises(rng, monkeypatch):
-    import audio_pattern_discovery_tpu.parallel.pair_scheduler as ps
+    import audio_pattern_discovery.parallel.pair_scheduler as ps
     import pytest
 
     feats, lengths = _features(rng, K=6, L=32)
@@ -171,9 +171,9 @@ def test_block_retry_exhausted_raises(rng, monkeypatch):
 @pytest.mark.full
 @pytest.mark.parametrize("band_mode", ["widen", "diag"])
 def test_overlong_bucket_routes_to_blocked_path(rng, band_mode):
-    """Buckets beyond the Pallas VMEM ceiling use the blocked long-DTW
+    """Buckets beyond LONG_BUCKET frames use the blocked long-DTW
     (both band semantics: the diag corridor mask lives in dtw_long too)."""
-    K, L = 5, 1088  # > MAX_KERNEL_SEQ_LEN = 1024
+    K, L = 5, 1088  # > LONG_BUCKET = 1024
     lengths = rng.integers(1040, L + 1, K).astype(np.int32)
     feats = rng.normal(0, 1, (K, L, 3)).astype(np.float32)
     cfg = DTWConfig(pair_batch=4, max_seq_len=L, band=24, use_pallas=False,
@@ -190,7 +190,7 @@ def test_overlong_bucket_routes_to_blocked_path(rng, band_mode):
 
 def test_overlong_odd_bucket_pads_to_healthy_block(rng):
     """An odd over-long bucket (1101) must not degrade to 1-element blocks."""
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import _long_block_shape
+    from audio_pattern_discovery.parallel.pair_scheduler import _long_block_shape
 
     blk, padded = _long_block_shape(1101)
     assert blk >= 128 and padded % blk == 0 and padded >= 1101
@@ -221,7 +221,7 @@ def test_block_checkpoint_invalidated_by_config_change(rng, tmp_path):
 
 
 def test_with_retries_success_after_retry():
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import _with_retries
+    from audio_pattern_discovery.parallel.pair_scheduler import _with_retries
 
     calls = {"n": 0}
 
@@ -236,7 +236,7 @@ def test_with_retries_success_after_retry():
 
 
 def test_with_retries_exhaustion_raises_last():
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import _with_retries
+    from audio_pattern_discovery.parallel.pair_scheduler import _with_retries
 
     def always_fail():
         raise RuntimeError("persistent")
@@ -248,7 +248,7 @@ def test_with_retries_exhaustion_raises_last():
 def test_with_retries_zero_budget_raises_pending():
     """max_retries < 1 must raise the PENDING exception (not a bare
     `raise`, which outside an except block is a RuntimeError itself)."""
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import _with_retries
+    from audio_pattern_discovery.parallel.pair_scheduler import _with_retries
 
     with pytest.raises(ValueError, match="the original failure"):
         _with_retries(lambda: "never called", 0, ValueError("the original failure"))

@@ -7,8 +7,8 @@ import shutil
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.models.autoencoder import FeatureScaler
-from audio_pattern_discovery_tpu.models.pca import PCAState, encode_pca, fit_pca
+from audio_pattern_discovery.models.autoencoder import FeatureScaler
+from audio_pattern_discovery.models.pca import PCAState, encode_pca, fit_pca
 
 
 def _lowrank_frames(rng, n=2000, d=24, k=4):
@@ -61,7 +61,7 @@ def test_fit_validates(rng):
 
 
 def test_checkpoint_roundtrip(tmp_path, rng):
-    from audio_pattern_discovery_tpu.utils.checkpoint import (
+    from audio_pattern_discovery.utils.checkpoint import (
         has_pca_checkpoint,
         restore_pca_checkpoint,
         save_pca_checkpoint,
@@ -92,8 +92,8 @@ def _pca_cfg():
 
 @pytest.mark.full
 def test_e2e_discover_with_pca(tmp_path):
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     corpus = tmp_path / "corpus"
     make_corpus(corpus, n_clips=8, n_motifs=2, occurrences_per_clip=2,
@@ -112,7 +112,7 @@ def test_e2e_discover_with_pca(tmp_path):
 
 def test_update_matches_full_run_with_frozen_pca(tmp_path):
     from tests.test_update import _partition, _split_corpus
-    from audio_pattern_discovery_tpu.pipeline import discover
+    from audio_pattern_discovery.pipeline import discover
 
     grow, later = _split_corpus(tmp_path)
     cfg = _pca_cfg()
@@ -134,14 +134,14 @@ def test_update_matches_full_run_with_frozen_pca(tmp_path):
     )
     assert _partition(r_up.labels) == _partition(r_full.labels)
     # The update re-saved the checkpoint, so chained updates keep working.
-    from audio_pattern_discovery_tpu.utils.checkpoint import has_pca_checkpoint
+    from audio_pattern_discovery.utils.checkpoint import has_pca_checkpoint
 
     assert has_pca_checkpoint(tmp_path / "out_up" / "ae_ckpt")
 
 
 def test_update_with_pca_requires_prior_checkpoint(tmp_path):
     from tests.test_update import _split_corpus
-    from audio_pattern_discovery_tpu.pipeline import discover
+    from audio_pattern_discovery.pipeline import discover
 
     grow, later = _split_corpus(tmp_path, n_total=8, n_initial=6)
     cfg = _pca_cfg()

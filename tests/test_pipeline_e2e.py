@@ -8,9 +8,9 @@ import json
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import PipelineConfig
-from audio_pattern_discovery_tpu.pipeline import discover
-from audio_pattern_discovery_tpu.synthetic import make_corpus
+from audio_pattern_discovery.config import PipelineConfig
+from audio_pattern_discovery.pipeline import discover
+from audio_pattern_discovery.synthetic import make_corpus
 
 
 def _small_config(ae: bool) -> PipelineConfig:
@@ -135,9 +135,9 @@ def test_deterministic_end_to_end(tmp_path):
 
 @pytest.mark.full
 def test_cluster_images_written(tmp_path):
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     make_corpus(tmp_path / "corpus", n_clips=6, n_motifs=2, seed=3)
     cfg = PipelineConfig()
@@ -154,7 +154,7 @@ def test_cluster_images_written(tmp_path):
 def test_config_validation_rejects_bad_knobs():
     import pytest
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
+    from audio_pattern_discovery.config import PipelineConfig
 
     cfg = PipelineConfig()
     cfg.dtw.metric = "manhattan"
@@ -179,9 +179,9 @@ def test_html_report_and_eval(tmp_path):
     sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parent.parent / "tools"))
     from eval_clusters import evaluate
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     make_corpus(tmp_path / "corpus", n_clips=8, n_motifs=2, seed=9)
     cfg = PipelineConfig()
@@ -206,7 +206,7 @@ def test_golden_harness_roundtrip(tmp_path, monkeypatch):
     import subprocess
     import sys
 
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.synthetic import make_corpus
 
     make_corpus(tmp_path / "corpus", n_clips=6, n_motifs=2, seed=13)
     base = [
@@ -217,7 +217,7 @@ def test_golden_harness_roundtrip(tmp_path, monkeypatch):
         "-s", "autoencoder.enabled=false", "-s", "dtw.band=16",
         "-s", "dtw.use_pallas=false",
     ]
-    env = {**__import__("os").environ, "APD_FORCE_CPU": "1"}
+    env = {**__import__("os").environ, "JAX_PLATFORMS": "cpu"}
     r = subprocess.run(base + ["save"] + common, capture_output=True, text=True,
                        cwd="/root/repo", env=env, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
@@ -230,7 +230,7 @@ def test_golden_harness_roundtrip(tmp_path, monkeypatch):
 def test_config_from_dict_rejects_unknown_section():
     import pytest
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
+    from audio_pattern_discovery.config import PipelineConfig
 
     with pytest.raises(ValueError, match="spectogram"):
         PipelineConfig.from_dict({"spectogram": {"hop_length": 128}})
@@ -245,9 +245,9 @@ def test_cluster_alignments_chunked_matches_one_shot(monkeypatch):
     import jax.numpy as jnp
     import numpy as np
 
-    import audio_pattern_discovery_tpu.pipeline as pl
-    from audio_pattern_discovery_tpu.ops.backtrace import paths_from_dirs
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch_with_dirs
+    import audio_pattern_discovery.pipeline as pl
+    from audio_pattern_discovery.ops.backtrace import paths_from_dirs
+    from audio_pattern_discovery.ops.dtw import dtw_batch_with_dirs
 
     rng = np.random.default_rng(7)
     K, L, d = 9, 48, 6
@@ -297,9 +297,9 @@ def test_behavior_matches_committed_golden(tmp_path):
 
     import numpy as np
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     golden_path = (
         pathlib.Path(__file__).parent / "golden" / "GOLDEN_cpu_seed7.npz"
@@ -337,9 +337,9 @@ def test_behavior_matches_committed_golden_mfcc_pca(tmp_path):
 
     import numpy as np
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     golden_path = (
         pathlib.Path(__file__).parent / "golden" / "GOLDEN_cpu_seed7_mfcc_pca.npz"
@@ -389,10 +389,10 @@ def test_behavior_matches_committed_golden_lenvar(tmp_path):
     import jax.numpy as jnp
     import numpy as np
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.ops.dtw import dtw_batch
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.ops.dtw import dtw_batch
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     golden_path = (
         pathlib.Path(__file__).parent / "golden" / "GOLDEN_cpu_lenvar_seed11.npz"
@@ -477,7 +477,7 @@ def test_mulaw8_upload_quality_parity(tmp_path):
 def test_mulaw_codec_roundtrip():
     """Companding accuracy: ~38 dB SNR on full-scale content and exact zero
     preservation (silence stays silence through the segmentation gate)."""
-    from audio_pattern_discovery_tpu.ops.spectrogram import (
+    from audio_pattern_discovery.ops.spectrogram import (
         mulaw_decode_device,
         mulaw_encode_host,
     )
@@ -498,7 +498,7 @@ def test_mixed_sample_rate_warning(tmp_path):
     (The apd logger doesn't propagate, so capture via an injected logger.)"""
     import logging
 
-    from audio_pattern_discovery_tpu.io.wavio import write_wav
+    from audio_pattern_discovery.io.wavio import write_wav
 
     rng = np.random.default_rng(0)
     corpus = tmp_path / "corpus"
@@ -545,8 +545,8 @@ def test_all_new_frontends_compose(tmp_path):
     """Round-3 front-end options all at once: mixed-rate corpus +
     resample=auto + MFCC features + PCA embedding still recovers the
     planted motifs with high purity."""
-    from audio_pattern_discovery_tpu.io.resample import resample
-    from audio_pattern_discovery_tpu.io.wavio import read_wav, write_wav
+    from audio_pattern_discovery.io.resample import resample
+    from audio_pattern_discovery.io.wavio import read_wav, write_wav
 
     src = tmp_path / "src"
     truth = make_corpus(src, n_clips=8, n_motifs=2, occurrences_per_clip=2,

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import pytest
 import numpy as np
 
-from audio_pattern_discovery_tpu.utils.profiling import annotate, trace_to
+from audio_pattern_discovery.utils.profiling import annotate, trace_to
 
 
 @pytest.mark.full

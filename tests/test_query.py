@@ -8,10 +8,10 @@ import shutil
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import PipelineConfig
-from audio_pattern_discovery_tpu.pipeline import discover
-from audio_pattern_discovery_tpu.query import query_corpus
-from audio_pattern_discovery_tpu.synthetic import make_corpus
+from audio_pattern_discovery.config import PipelineConfig
+from audio_pattern_discovery.pipeline import discover
+from audio_pattern_discovery.query import query_corpus
+from audio_pattern_discovery.synthetic import make_corpus
 
 
 def _cfg(ae: bool = False) -> PipelineConfig:
@@ -126,7 +126,7 @@ def test_query_missing_wav_and_state(tmp_path):
 
 
 def test_cli_query_flag(tmp_path, capsys):
-    from audio_pattern_discovery_tpu.cli import main
+    from audio_pattern_discovery.cli import main
 
     _, query_wav, cfg, out, _ = _setup(tmp_path, ae=False)
     cfg_path = tmp_path / "cfg.json"
@@ -142,7 +142,7 @@ def test_cli_query_flag(tmp_path, capsys):
 def test_query_rejects_mismatched_sample_rate(tmp_path):
     """win/hop are in samples: a query at another rate is meaningless and
     must be rejected, not silently ranked."""
-    from audio_pattern_discovery_tpu.io.wavio import write_wav
+    from audio_pattern_discovery.io.wavio import write_wav
 
     _, _, cfg, out, _ = _setup(tmp_path, ae=False)
     rng = np.random.default_rng(0)
@@ -153,7 +153,7 @@ def test_query_rejects_mismatched_sample_rate(tmp_path):
 
 
 def test_cli_query_conflicts_rejected(tmp_path, capsys):
-    from audio_pattern_discovery_tpu.cli import main
+    from audio_pattern_discovery.cli import main
 
     with pytest.raises(SystemExit):
         main(["somedir", "--query", "q.wav", "-o", str(tmp_path)])
@@ -175,8 +175,8 @@ def test_query_off_rate_wav_accepted_with_resample_auto(tmp_path):
     """With spectrogram.resample=auto an off-rate query WAV is unified to
     the analysis rate instead of rejected, and still ranks its own motif's
     corpus segments first."""
-    from audio_pattern_discovery_tpu.io.resample import resample
-    from audio_pattern_discovery_tpu.io.wavio import read_wav, write_wav
+    from audio_pattern_discovery.io.resample import resample
+    from audio_pattern_discovery.io.wavio import read_wav, write_wav
 
     truth, query_wav, cfg, out, result = _setup(tmp_path, ae=False)
     # Re-encode the held-out query clip at 32 kHz.
@@ -213,7 +213,7 @@ def test_fingerprint_forward_compatible_with_default_knobs():
     (a) adding a future knob with a behavior-preserving default cannot
     invalidate existing indexes, and (b) the fingerprint still moves when
     a feature-affecting knob actually changes."""
-    from audio_pattern_discovery_tpu.pipeline import _feature_fingerprint
+    from audio_pattern_discovery.pipeline import _feature_fingerprint
 
     base = _feature_fingerprint(_cfg(ae=False))
     # resample is excluded entirely (dynamic guards cover it).

@@ -4,13 +4,13 @@
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.io.corpus import StreamingCorpus
-from audio_pattern_discovery_tpu.io.resample import (
+from audio_pattern_discovery.io.corpus import StreamingCorpus
+from audio_pattern_discovery.io.resample import (
     polyphase_filter,
     resample,
     resampled_length,
 )
-from audio_pattern_discovery_tpu.io.wavio import read_wav, write_wav
+from audio_pattern_discovery.io.wavio import read_wav, write_wav
 
 
 @pytest.mark.parametrize("rf,rt", [(44_100, 16_000), (48_000, 16_000),
@@ -104,9 +104,9 @@ def test_streaming_corpus_unifies_rates(tmp_path, rng):
 def test_e2e_mixed_rate_corpus_matches_native_rate_run(tmp_path, rng):
     """Discovery over a corpus with off-rate clips (resample=auto) finds the
     same partition as the same corpus natively at the analysis rate."""
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     native_dir = tmp_path / "native"
     make_corpus(native_dir, n_clips=6, n_motifs=2, occurrences_per_clip=2,
@@ -148,7 +148,7 @@ def test_e2e_mixed_rate_corpus_matches_native_rate_run(tmp_path, rng):
 
 
 def test_config_validation():
-    from audio_pattern_discovery_tpu.config import (
+    from audio_pattern_discovery.config import (
         PipelineConfig,
         SpectrogramConfig,
     )

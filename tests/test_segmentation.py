@@ -1,7 +1,7 @@
 import numpy as np
 
-from audio_pattern_discovery_tpu.config import SegmentationConfig
-from audio_pattern_discovery_tpu.ops.segmentation import (
+from audio_pattern_discovery.config import SegmentationConfig
+from audio_pattern_discovery.ops.segmentation import (
     segment_corpus,
     segment_energy,
     segment_sliding,
@@ -65,8 +65,8 @@ def test_silent_clip_yields_no_segments():
     """A digitally silent clip must not flood the pipeline with junk runs."""
     import numpy as np
 
-    from audio_pattern_discovery_tpu.config import SegmentationConfig
-    from audio_pattern_discovery_tpu.ops.segmentation import segment_energy
+    from audio_pattern_discovery.config import SegmentationConfig
+    from audio_pattern_discovery.ops.segmentation import segment_energy
 
     cfg = SegmentationConfig()
     silent = np.full(500, -10.0)  # all frames at the log floor

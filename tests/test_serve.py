@@ -1,8 +1,8 @@
 """Warm-process serving (serve.py): protocol, fault isolation, and
 output parity with the direct library calls.
 
-The server runs as a real subprocess under APD_FORCE_CPU=1 (the same
-host-only switch every CLI test uses), exercising the --serve CLI wiring,
+The server runs as a real subprocess under JAX_PLATFORMS=cpu, exercising
+the --serve CLI wiring,
 the socket protocol, and the one-at-a-time request loop end to end.  One
 long test amortizes the subprocess's import cost — the point of the serve
 mode is precisely that process startup is expensive.
@@ -18,9 +18,9 @@ import time
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import PipelineConfig
-from audio_pattern_discovery_tpu.serve import request, serve
-from audio_pattern_discovery_tpu.synthetic import make_corpus
+from audio_pattern_discovery.config import PipelineConfig
+from audio_pattern_discovery.serve import request, serve
+from audio_pattern_discovery.synthetic import make_corpus
 
 REPO_ROOT = str(pathlib.Path(__file__).resolve().parents[1])
 
@@ -41,12 +41,12 @@ def _small_cfg_dict() -> dict:
 
 
 def _start_server(sock):
-    env = {**os.environ, "APD_FORCE_CPU": "1"}
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     proc = subprocess.Popen(
         [
             sys.executable,
             "-m",
-            "audio_pattern_discovery_tpu",
+            "audio_pattern_discovery",
             "--serve",
             str(sock),
         ],
@@ -102,7 +102,7 @@ def test_serve_end_to_end(tmp_path):
         assert (out_srv / "clusters.json").exists()
 
         # -- parity with the direct library call -------------------------
-        from audio_pattern_discovery_tpu.pipeline import discover
+        from audio_pattern_discovery.pipeline import discover
 
         direct = discover(
             corpus, PipelineConfig.from_dict(cfg_dict), out_dir=out_lib

@@ -1,13 +1,13 @@
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.io.corpus import pad_and_stack
-from audio_pattern_discovery_tpu.ops.spectrogram import (
+from audio_pattern_discovery.io.corpus import pad_and_stack
+from audio_pattern_discovery.ops.spectrogram import (
     batched_spectrogram,
     frame_energy,
     num_frames,
 )
-from audio_pattern_discovery_tpu.oracle.stft import stft_oracle
+from audio_pattern_discovery.oracle.stft import stft_oracle
 
 
 @pytest.mark.parametrize("window", ["hann", "hamming", "rect"])
@@ -81,9 +81,9 @@ def test_corpus_tiling_matches_single_shot(rng):
     """Streaming [clip_batch, chunk] tiles == one padded batched call."""
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.io.corpus import pad_and_stack
-    from audio_pattern_discovery_tpu.ops.spectrogram import (
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.io.corpus import pad_and_stack
+    from audio_pattern_discovery.ops.spectrogram import (
         batched_spectrogram,
         spectrogram_corpus,
     )
@@ -116,8 +116,8 @@ def test_corpus_tiling_matches_single_shot(rng):
 
 
 def test_corpus_tiling_short_clip_zero_frames(rng):
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.ops.spectrogram import spectrogram_corpus
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.ops.spectrogram import spectrogram_corpus
 
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
     sigs = [
@@ -129,10 +129,10 @@ def test_corpus_tiling_short_clip_zero_frames(rng):
 
 
 def test_matmul_dft_matches_rfft(rng):
-    """The MXU matmul DFT path == the library rfft within float tolerance."""
+    """The matmul DFT path == the library rfft within float tolerance."""
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.ops.spectrogram import batched_spectrogram
+    from audio_pattern_discovery.ops.spectrogram import batched_spectrogram
 
     sig = rng.normal(0, 0.3, (3, 4000)).astype(np.float32)
     lens = np.array([4000, 3000, 700], np.int32)
@@ -146,7 +146,7 @@ def test_matmul_dft_matches_rfft(rng):
 def test_matmul_dft_zero_pad_and_truncate(rng):
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.ops.spectrogram import batched_spectrogram
+    from audio_pattern_discovery.ops.spectrogram import batched_spectrogram
 
     sig = rng.normal(0, 0.3, (2, 2000)).astype(np.float32)
     lens = np.array([2000, 1500], np.int32)
@@ -161,8 +161,8 @@ def test_device_assembly_matches_host(rng):
     """return_device=True corpus == host-assembled corpus (the oracle)."""
     import jax.numpy as jnp  # noqa: F401
 
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.ops.spectrogram import spectrogram_corpus
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.ops.spectrogram import spectrogram_corpus
 
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
     sigs = [
@@ -182,8 +182,8 @@ def test_device_segment_extraction_matches_host(rng):
     """extract_segment_features_device == the host slicer (the oracle)."""
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.ops.segmentation import Segment
-    from audio_pattern_discovery_tpu.pipeline import (
+    from audio_pattern_discovery.ops.segmentation import Segment
+    from audio_pattern_discovery.pipeline import (
         extract_segment_features,
         extract_segment_features_device,
     )
@@ -204,8 +204,8 @@ def test_device_segment_extraction_matches_host(rng):
 
 def test_int16_upload_is_bit_exact(rng):
     """int16 device upload + on-device decode/normalize == f32 host path."""
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.ops.spectrogram import spectrogram_corpus
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.ops.spectrogram import spectrogram_corpus
 
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
     raw = [
@@ -224,15 +224,16 @@ def test_int16_upload_is_bit_exact(rng):
     np.testing.assert_array_equal(en_w, en_g)
 
 
-@pytest.mark.tpu
-def test_tpu_compiled_dft_precision_vs_oracle(rng):
-    """Compiled MXU DFT at each precision tier vs the float64 oracle: the
-    default 'high' (3-pass bf16) must stay well inside the test tolerance;
-    'default' (1-pass) is looser but must stay within ~1e-2 of log10 values
-    (documents the tier contract in config.SpectrogramConfig)."""
-    sig = rng.normal(0, 0.3, 50_000).astype(np.float32)
+@pytest.mark.gpu
+def test_gpu_compiled_dft_precision_vs_oracle():
+    """Compiled DFT matmul at each precision tier vs the float64 oracle on
+    the card, scaled by this file's tolerance (rtol = atol = 1e-4): the
+    default "highest" stays inside it; "high" and "default" run reduced-
+    precision passes and miss it by orders of magnitude (PERF.md), which
+    is why they are not the default."""
+    sig = np.random.default_rng(7).normal(0, 0.3, 44_100).astype(np.float32)
     ref = stft_oracle(sig, win_length=1024, hop_length=256)
-    for prec, tol in (("highest", 2e-4), ("high", 2e-3), ("default", 5e-2)):
+    for prec, bound in (("highest", 1.0), ("high", 1e3), ("default", 1e3)):
         spec, counts = batched_spectrogram(
             sig[None],
             np.array([len(sig)], np.int32),
@@ -242,8 +243,9 @@ def test_tpu_compiled_dft_precision_vs_oracle(rng):
         )
         nf = int(counts[0])
         assert nf == ref.shape[0]
-        err = np.max(np.abs(np.asarray(spec[0, :nf]) - ref))
-        assert err < tol, f"{prec}: max log10 err {err} >= {tol}"
+        got = np.asarray(spec[0, :nf])
+        err = np.max(np.abs(got - ref) / (1e-4 + 1e-4 * np.abs(ref)))
+        assert err < bound, f"{prec}: {err:.3f} x the tolerance >= {bound}"
 
 
 @pytest.mark.full
@@ -252,11 +254,11 @@ def test_corpus_multi_device_round_robin_bit_identical(rng):
     single-device path, bit for bit (same tile program per device), for
     both the host and the device-resident collection paths, float32 and
     int16(+scales) uploads.  This is the spectrogram stage's DP story for
-    BASELINE config 5 ("sharded across a v5e-8 slice")."""
+    BASELINE config 5 (sharded across the devices of one host)."""
     import jax
 
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.ops.spectrogram import spectrogram_corpus
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.ops.spectrogram import spectrogram_corpus
 
     devices = jax.devices()
     assert len(devices) >= 2, "suite runs with 8 virtual devices"
@@ -298,8 +300,8 @@ def test_threaded_collection_identical(rng, monkeypatch):
     """Tile collection on the worker thread (round 4) must be a pure
     implementation detail: bitwise-identical specs/energies/frame counts
     to the APD_SYNC_SPECTRO=1 inline path, host and device-resident."""
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.ops.spectrogram import spectrogram_corpus
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.ops.spectrogram import spectrogram_corpus
 
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
     sigs = [
@@ -330,8 +332,8 @@ def test_threaded_collection_no_leak_on_error(rng):
     import threading
     import unittest.mock as mock
 
-    from audio_pattern_discovery_tpu.config import SpectrogramConfig
-    from audio_pattern_discovery_tpu.ops import spectrogram as sp
+    from audio_pattern_discovery.config import SpectrogramConfig
+    from audio_pattern_discovery.ops import spectrogram as sp
 
     cfg = SpectrogramConfig(win_length=64, hop_length=16)
     sigs = [rng.normal(0, 0.3, 500).astype(np.float32) for _ in range(4)]

@@ -12,9 +12,9 @@ import shutil
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.config import PipelineConfig
-from audio_pattern_discovery_tpu.pipeline import discover
-from audio_pattern_discovery_tpu.synthetic import make_corpus
+from audio_pattern_discovery.config import PipelineConfig
+from audio_pattern_discovery.pipeline import discover
+from audio_pattern_discovery.synthetic import make_corpus
 
 
 def _cfg(ae: bool = False) -> PipelineConfig:
@@ -115,7 +115,7 @@ def test_update_matches_full_run_with_frozen_ae(tmp_path):
     )
     assert _partition(r_up.labels) == _partition(r_full.labels)
     # Chained updates keep working: the update run re-saved the checkpoint.
-    from audio_pattern_discovery_tpu.utils.checkpoint import has_ae_checkpoint
+    from audio_pattern_discovery.utils.checkpoint import has_ae_checkpoint
 
     assert has_ae_checkpoint(tmp_path / "out_up" / "ae_ckpt")
 
@@ -196,7 +196,7 @@ def test_update_with_ae_requires_prior_checkpoint(tmp_path):
 
 @pytest.mark.full
 def test_cli_update_flag(tmp_path):
-    from audio_pattern_discovery_tpu.cli import main
+    from audio_pattern_discovery.cli import main
 
     grow, later = _split_corpus(tmp_path, n_total=8, n_initial=6)
     out = tmp_path / "out"

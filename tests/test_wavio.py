@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from audio_pattern_discovery_tpu.io.wavio import read_wav, write_wav
+from audio_pattern_discovery.io.wavio import read_wav, write_wav
 
 
 def test_write_read_roundtrip(tmp_path, rng):
@@ -71,9 +71,9 @@ def test_native_batch_loader_matches_python(tmp_path, rng):
     """The C++ parallel demuxer and the Python reader agree bit-for-bit."""
     import pytest
 
-    from audio_pattern_discovery_tpu import native
-    from audio_pattern_discovery_tpu.io.corpus import load_corpus
-    from audio_pattern_discovery_tpu.io.wavio import write_wav
+    from audio_pattern_discovery import native
+    from audio_pattern_discovery.io.corpus import load_corpus
+    from audio_pattern_discovery.io.wavio import write_wav
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -92,8 +92,8 @@ def test_native_loader_falls_back_on_nonpcm16(tmp_path, rng):
     """A float32 WAV in the corpus routes the whole load to the Python path."""
     import struct
 
-    from audio_pattern_discovery_tpu.io.corpus import load_corpus
-    from audio_pattern_discovery_tpu.io.wavio import write_wav
+    from audio_pattern_discovery.io.corpus import load_corpus
+    from audio_pattern_discovery.io.wavio import write_wav
 
     write_wav(tmp_path / "a.wav", rng.normal(0, 0.2, 2000), 16000)
     # Hand-rolled IEEE float32 WAV.
@@ -112,7 +112,7 @@ def test_extensible_int32_pcm(tmp_path, rng):
     """WAVE_FORMAT_EXTENSIBLE must honor the SubFormat GUID, not bit depth."""
     import struct
 
-    from audio_pattern_discovery_tpu.io.wavio import read_wav
+    from audio_pattern_discovery.io.wavio import read_wav
 
     x = (rng.normal(0, 0.1, 1000) * 2**31).clip(-(2**31), 2**31 - 1).astype("<i4")
     pcm = x.tobytes()
@@ -137,7 +137,7 @@ def test_read_wav_info_matches_read_wav(tmp_path, rng):
     import struct
     import wave
 
-    from audio_pattern_discovery_tpu.io.wavio import read_wav_info
+    from audio_pattern_discovery.io.wavio import read_wav_info
 
     # mono PCM16 via our writer
     x = rng.uniform(-0.9, 0.9, 12_345).astype(np.float32)
@@ -180,7 +180,7 @@ def test_read_wav_info_matches_read_wav(tmp_path, rng):
 def test_streaming_corpus_lazy_and_equivalent(tmp_path, rng):
     """StreamingCorpus: headers without sample IO, chunked loading on
     access, and clip-for-clip equality with the eager loader."""
-    from audio_pattern_discovery_tpu.io.corpus import StreamingCorpus, load_corpus
+    from audio_pattern_discovery.io.corpus import StreamingCorpus, load_corpus
 
     for i in range(7):
         x = rng.uniform(-0.9, 0.9, 1000 + 100 * i).astype(np.float32)
@@ -202,7 +202,7 @@ def test_streaming_corpus_lazy_and_equivalent(tmp_path, rng):
 
 
 def test_streaming_corpus_empty_dir(tmp_path):
-    from audio_pattern_discovery_tpu.io.corpus import StreamingCorpus
+    from audio_pattern_discovery.io.corpus import StreamingCorpus
 
     import pytest as _pytest
 
@@ -219,7 +219,7 @@ def test_streaming_corpus_stereo_pcm16_not_int16_exact(tmp_path, rng):
     re-quantization would round (code-review round-3 finding)."""
     import wave
 
-    from audio_pattern_discovery_tpu.io.corpus import StreamingCorpus
+    from audio_pattern_discovery.io.corpus import StreamingCorpus
 
     inter = (rng.uniform(-0.5, 0.5, 2000) * 32767).astype("<i2")
     with wave.open(str(tmp_path / "st.wav"), "wb") as f:
@@ -241,8 +241,8 @@ def test_corrupt_wav_fails_fast_with_filename(tmp_path, rng):
     any samples load or device work starts) and names the bad file."""
     import pytest
 
-    from audio_pattern_discovery_tpu.io.corpus import StreamingCorpus
-    from audio_pattern_discovery_tpu.io.wavio import write_wav
+    from audio_pattern_discovery.io.corpus import StreamingCorpus
+    from audio_pattern_discovery.io.wavio import write_wav
 
     write_wav(tmp_path / "good.wav", rng.normal(0, 0.1, 4000).astype("float32"),
               16_000)

@@ -40,7 +40,7 @@ def main() -> int:
     base = pathlib.Path(os.environ.get("APD_FIELD_DIR", "/tmp/apd_field"))
     corpus = base / f"corpus_{n_clips}x{int(CLIP_MINUTES)}min_s{seed}"
 
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.synthetic import make_corpus
 
     if not (corpus / "truth.json").exists():
         log(f"synthesizing {n_clips} x {CLIP_MINUTES:.0f} min clips ...")
@@ -59,9 +59,9 @@ def main() -> int:
     else:
         log(f"reusing corpus at {corpus}")
 
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.utils.logging import get_logger
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.utils.logging import get_logger
 
     out = base / "out"
     cfg = PipelineConfig()

@@ -54,9 +54,9 @@ ANCHORS = {
 
 
 def _discover(which: str):
-    from audio_pattern_discovery_tpu.config import PipelineConfig
-    from audio_pattern_discovery_tpu.pipeline import discover
-    from audio_pattern_discovery_tpu.synthetic import make_corpus
+    from audio_pattern_discovery.config import PipelineConfig
+    from audio_pattern_discovery.pipeline import discover
+    from audio_pattern_discovery.synthetic import make_corpus
 
     cfg = PipelineConfig()
     cfg.dtw.band = 16

@@ -1,11 +1,10 @@
 #!/usr/bin/env python
 """Host scatter microbench: fused C++ block scatter vs the NumPy chain.
 
-Times ONLY the host assembly half of the tiled pair scheduler (no TPU, no
-jax): synthetic [ti, ti] blocks driven through the same scatter_chunk code
-paths via all-tile-pair chunks.  This is the half that round 3 measured at
-~1/3 of contract-scale wall (direct mode, K=10k) and 418 s at K=40k (strip
-mode) — see BASELINE.md rounds 3-4 and VERDICT r3 item 2.
+Times ONLY the host assembly half of the tiled pair scheduler (no device,
+no jax): synthetic [ti, ti] blocks driven through the same scatter_chunk code
+paths via all-tile-pair chunks.  This half outlasts the device in the
+config-4 job on the GPU (PERF.md).
 
 Usage: python tools/scatter_bench.py [K] [ti]   (defaults 10240 128)
 Strip mode is timed at the same K with the direct threshold forced to 0,
@@ -27,7 +26,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 def main() -> int:
     K = int(sys.argv[1]) if len(sys.argv) > 1 else 10_240
     ti = int(sys.argv[2]) if len(sys.argv) > 2 else 128
-    from audio_pattern_discovery_tpu import native
+    from audio_pattern_discovery import native
 
     if not native.available():
         print("native library unavailable", file=sys.stderr)

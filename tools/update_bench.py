@@ -4,7 +4,7 @@ by a fraction F of new sequences and compare `known=`-update DTW cost to the
 full-triangle recompute (parallel/pair_scheduler.py `known`, SS6.4).
 
 Usage: python tools/update_bench.py [K] [F]   (defaults: 10000 0.05)
-Prints one JSON line to stdout; detail on stderr.  APD_FORCE_CPU=1 for a
+Prints one JSON line to stdout; detail on stderr.  JAX_PLATFORMS=cpu for a
 host smoke run (tiny K recommended).
 """
 
@@ -30,15 +30,11 @@ def log(m):
 
 
 def main() -> int:
-    if os.environ.get("APD_FORCE_CPU"):
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
     import jax
     import jax.numpy as jnp
 
-    from audio_pattern_discovery_tpu.config import DTWConfig
-    from audio_pattern_discovery_tpu.parallel.pair_scheduler import (
+    from audio_pattern_discovery.config import DTWConfig
+    from audio_pattern_discovery.parallel.pair_scheduler import (
         all_pairs_distances,
     )
 
